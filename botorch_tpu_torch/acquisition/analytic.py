@@ -1,0 +1,132 @@
+r"""Analytic acquisition functions for Gaussian posteriors (counterpart of
+`botorch_tpu/acquisition/analytic.py`): EI, LogEI, PI, LogPI, UCB and
+PosteriorMean, the classes of the BO loop's `_ANALYTIC` table.
+
+Each acquisition function is a dataclass holding the fitted model and its
+train cache (`model.train_chol()`), so every evaluation reuses one
+factorization. `__call__` follows BoTorch's t-batch contract, where the JAX
+package used `vmap`: `X: (b, q, d)` with `q = 1` maps to values `(b,)`.
+Fully-Bayesian ensembles are not part of this port yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Union
+
+import torch
+
+from botorch_tpu_torch.models.gp import SingleTaskGP
+from botorch_tpu_torch.utils.probability import (
+    ei_helper,
+    log_ei_helper,
+    log_ndtr,
+    ndtr,
+)
+from botorch_tpu_torch.utils.safe_math import maximum
+
+Tensor = torch.Tensor
+
+_MIN_VAR = 1e-12
+
+
+@dataclass(kw_only=True)
+class AnalyticAcquisitionFunction:
+    """Shared machinery: marginal posterior moments at single points."""
+
+    model: SingleTaskGP
+    cache: tuple  # (L, alpha, Linv) from model.train_chol()
+    maximize: bool = True
+
+    def _mean_and_sigma(self, X: Tensor) -> tuple[Tensor, Tensor]:
+        """Posterior mean and stddev at `X: (b, 1, d)` -> `(b,)` each."""
+        post = self.model.posterior(X, cache=self.cache)
+        mean = post.mean[..., 0, 0]
+        sigma = torch.sqrt(maximum(post.variance[..., 0, 0], _MIN_VAR))
+        return mean, sigma
+
+    def _u(self, X: Tensor, best_f) -> tuple[Tensor, Tensor]:
+        mean, sigma = self._mean_and_sigma(X)
+        u = (mean - best_f) / sigma
+        return (u if self.maximize else -u), sigma
+
+
+@dataclass(kw_only=True)
+class ExpectedImprovement(AnalyticAcquisitionFunction):
+    """`EI(x) = sigma * (phi(u) + u Phi(u))`, `u = (mu - best_f)/sigma`."""
+
+    best_f: Union[Tensor, float] = 0.0
+
+    def __call__(self, X: Tensor) -> Tensor:
+        u, sigma = self._u(X, self.best_f)
+        return sigma * ei_helper(u)
+
+
+@dataclass(kw_only=True)
+class LogExpectedImprovement(AnalyticAcquisitionFunction):
+    """`log EI(x)`, numerically robust far from the incumbent
+    [Ament2023logei]."""
+
+    best_f: Union[Tensor, float] = 0.0
+
+    def __call__(self, X: Tensor) -> Tensor:
+        u, sigma = self._u(X, self.best_f)
+        return log_ei_helper(u) + torch.log(sigma)
+
+
+@dataclass(kw_only=True)
+class ProbabilityOfImprovement(AnalyticAcquisitionFunction):
+    """`PI(x) = Phi((mu - best_f)/sigma)`."""
+
+    best_f: Union[Tensor, float] = 0.0
+
+    def __call__(self, X: Tensor) -> Tensor:
+        u, _ = self._u(X, self.best_f)
+        return ndtr(u)
+
+
+@dataclass(kw_only=True)
+class LogProbabilityOfImprovement(AnalyticAcquisitionFunction):
+    """`log PI(x)` via the stable `log_ndtr`."""
+
+    best_f: Union[Tensor, float] = 0.0
+
+    def __call__(self, X: Tensor) -> Tensor:
+        u, _ = self._u(X, self.best_f)
+        return log_ndtr(u)
+
+
+@dataclass(kw_only=True)
+class UpperConfidenceBound(AnalyticAcquisitionFunction):
+    """`UCB(x) = mu + sqrt(beta) * sigma`."""
+
+    beta: Union[Tensor, float] = 0.25
+
+    def __call__(self, X: Tensor) -> Tensor:
+        mean, sigma = self._mean_and_sigma(X)
+        delta = torch.sqrt(torch.as_tensor(self.beta, dtype=sigma.dtype, device=sigma.device)) * sigma
+        return mean + delta if self.maximize else -(mean - delta)
+
+
+@dataclass(kw_only=True)
+class PosteriorMean(AnalyticAcquisitionFunction):
+    """Posterior mean (negated when minimizing)."""
+
+    def __call__(self, X: Tensor) -> Tensor:
+        mean, _ = self._mean_and_sigma(X)
+        return mean if self.maximize else -mean
+
+
+ANALYTIC = {
+    "EI": ExpectedImprovement,
+    "LogEI": LogExpectedImprovement,
+    "PI": ProbabilityOfImprovement,
+    "LogPI": LogProbabilityOfImprovement,
+    "UCB": UpperConfidenceBound,
+    "PosteriorMean": PosteriorMean,
+}
+
+
+def make_acqf(name: str, model: SingleTaskGP, **kwargs):
+    """String-keyed factory; the train cache is computed here once."""
+    return ANALYTIC[name](model=model, cache=model.train_chol(), **kwargs)

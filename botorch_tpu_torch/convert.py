@@ -1,0 +1,60 @@
+r"""Carry GP hyperparameters between the JAX package and the port.
+
+Parameters cross as a dict of numpy arrays keyed by the `GPParams` field
+names, so neither package imports the other. The flat-vector helpers keep
+`jax.flatten_util.ravel_pytree`'s order of the JAX `GPParams` fields
+(mean, raw_lengthscale, raw_outputscale, raw_noise), with any leading
+batch dims kept in front of the flat axis.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from botorch_tpu_torch.models.gp import GPParams
+
+Tensor = torch.Tensor
+
+
+def gp_params_from_numpy(arrays: dict, dtype=torch.float32, device="cpu") -> GPParams:
+    """`GPParams` from `{field: numpy array}`. A `raw_kernel_weights` entry
+    must be absent or None: composite kernels are not ported yet."""
+    if arrays.get("raw_kernel_weights") is not None:
+        raise NotImplementedError("kernel weights are not part of the port yet")
+    return GPParams(
+        *(torch.as_tensor(np.asarray(arrays[f]), dtype=dtype, device=device)
+          for f in GPParams.FIELDS)
+    )
+
+
+def gp_params_to_numpy(params: GPParams) -> dict:
+    """`{field: numpy array}` of a `GPParams`."""
+    return {f: getattr(params, f).detach().cpu().numpy() for f in GPParams.FIELDS}
+
+
+def flatten_params(params: GPParams, batch_dims: int = 0) -> Tensor:
+    """Concatenate the fields into `(*batch, k)` in ravel order; the first
+    `batch_dims` dims of every field are batch dims."""
+    parts = []
+    for f in GPParams.FIELDS:
+        t = getattr(params, f)
+        parts.append(t.reshape(*t.shape[:batch_dims], -1))
+    return torch.cat(parts, dim=-1)
+
+
+def unflatten_params(flat: Tensor, like: GPParams) -> GPParams:
+    """Inverse of `flatten_params` for unbatched `like`: `flat (..., k)`
+    becomes fields of shape `(..., *field_shape)`."""
+    lead = flat.shape[:-1]
+    fields, off = [], 0
+    for f in GPParams.FIELDS:
+        shape = getattr(like, f).shape
+        size = math.prod(shape)
+        fields.append(flat[..., off:off + size].reshape(*lead, *shape))
+        off += size
+    if off != flat.shape[-1]:
+        raise ValueError(f"flat vector has {flat.shape[-1]} entries, params need {off}")
+    return GPParams(*fields)

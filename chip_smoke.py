@@ -1,0 +1,462 @@
+"""On-card smoke test of botorch_tpu_torch: build, kernel checks, config-1 loop.
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. build: compile both CUDA kernels from `botorch_tpu_torch/csrc/` (one
+     nvcc process per source, all at once);
+  2. k1: kernel K1 (`mvn_quad_logdet`) against its plain PyTorch version,
+     forward and backward, in float32 and float64, with times;
+  3. k2: kernel K2 (`kernel_matrix`) against its plain version for the four
+     kernels, forward and backward, with times;
+  4. bo_step: one BO step on the card against the same step on the CPU
+     (plain versions), with the same restart starts and initial conditions;
+  5. bo_loop: the config-1 BO loop (SingleTaskGP + LogEI on Branin, d=2,
+     n_init=10, 25 iterations, num_restarts=6, raw_samples=64,
+     fit_restarts=2, fit_maxiter=15, acq_maxiter=15, seed 0) through
+     `run_bo_loop`, with each kernel's launch count over the run.
+Then the per-kernel summary line, the card's name and power limit, and
+the final status line. Any failed phase makes the script exit non-zero;
+without a CUDA device it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+
+BRANIN_OPT = 0.397887
+REGRET_BAR = 0.5
+LOOP_CFG = dict(
+    num_restarts=6, raw_samples=64, fit_restarts=2, fit_maxiter=15, acq_maxiter=15
+)
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 /
+# float64 operations per second outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float32": 67e12, "float64": 34e12}
+# Kernel-vs-plain tolerances (max |kernel - plain| <= atol + rtol * max |plain|).
+# float32: both sides round differently in sums of ~n terms; Kinv and dK
+# carry the condition number (< 10 for the K1 test matrices).
+K1_TOL = {"float32": (1e-5, 2e-5), "float64": (1e-12, 1e-11)}
+# matern12 = exp(-r) with r = sqrt(d2) has unit slope at r = 0, so the
+# float32 cancellation error of d2 (~1e-7 at coincident points) becomes
+# ~3e-4 in the output there; the smooth kernels see only ~1e-7.
+K2_ATOL = {
+    "float32": {"rbf": 1e-5, "matern52": 1e-5, "matern32": 1e-5, "matern12": 2e-3},
+    "float64": {"rbf": 1e-12, "matern52": 1e-12, "matern32": 1e-12, "matern12": 1e-7},
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
+    """Milliseconds per call between CUDA events around `reps` calls: the
+    host-inclusive cost of a call (Python, wrapper, launch) when that is
+    longer than the device work."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_profile(fn, reps: int = 1) -> dict:
+    """`{kernel name: (launches, device microseconds)}` of `reps` calls of
+    `fn`, from `torch.profiler`'s CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        # CPU ops carry their kernels' time too: keep the device events only
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows[e.key] = (e.count, float(us))
+    return rows
+
+
+def device_ms(fn, reps: int = 50) -> tuple[float, str]:
+    """Device milliseconds per call (every kernel the call launches), from
+    the profiler; CUDA events around the calls if the profiler sees no
+    device time."""
+    for _ in range(5):
+        fn()
+    rows = device_profile(fn, reps)
+    total_us = sum(us for _, us in rows.values())
+    if total_us > 0:
+        return total_us / reps / 1e3, "profiler"
+    return time_ms(fn, reps), "events"
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def within(err: float, ref, atol: float, rtol: float = 0.0) -> bool:
+    return math.isfinite(err) and err <= atol + rtol * float(ref.double().abs().max())
+
+
+def timings(kernel, plain, library) -> dict:
+    """Device time per call of the kernel's wrapper, its plain version and
+    the library yardstick (`*_ms`), and the host-inclusive call time of the
+    wrapper and the plain version (`*call_ms`)."""
+    ms, how = device_ms(kernel)
+    plain_ms, _ = device_ms(plain)
+    return {
+        "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None if library is None else device_ms(library)[0],
+        "timing": how, "call_ms": time_ms(kernel), "plain_call_ms": time_ms(plain),
+    }
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = ops / PEAK_OPS_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------- #
+def phase_build():
+    from botorch_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.build()
+    cuda_build.load("mvn_quad_logdet")
+    cuda_build.load("kernel_matrix")
+    return {"phase": "build", "seconds": time.perf_counter() - t0,
+            "sources": list(cuda_build.KERNEL_SOURCES), "gpu": smi_line()}
+
+
+def _spd(B, n, dtype, gen):
+    import torch
+
+    A = torch.randn(B, n, n, generator=gen, dtype=torch.float64)
+    K = A @ A.transpose(-1, -2) + n * torch.eye(n, dtype=torch.float64)
+    r = torch.randn(B, n, generator=gen, dtype=torch.float64)
+    return K.to(dtype).cuda(), r.to(dtype).cuda()
+
+
+def k1_case(B, n, dtype, gen):
+    import torch
+
+    from botorch_tpu_torch.ops.mvn_linalg import mvn_quad_logdet, qd_cuda, qd_plain
+
+    name = str(dtype).split(".")[-1]
+    K, r = _spd(B, n, dtype, gen)
+    errs, ok = {}, True
+    atol, rtol = K1_TOL[name]
+    got = qd_cuda(K, r)
+    ref = qd_plain(K, r)
+    for key, a, b in zip(("quad", "logdet", "alpha", "linv"), got, ref):
+        errs[key] = max_err(a, b)
+        ok &= within(errs[key], b, atol, rtol)
+    # backward: the kernel's closed form against autograd of the plain version
+    Kg = K.clone().requires_grad_(True)
+    rg = r.clone().requires_grad_(True)
+    q, ld = mvn_quad_logdet(Kg, rg)
+    dK, dr = torch.autograd.grad((q + 0.5 * ld).sum(), (Kg, rg))
+    Kp = K.clone().requires_grad_(True)
+    rp = r.clone().requires_grad_(True)
+    qp, ldp, _, _ = qd_plain(Kp, rp)
+    dKp, drp = torch.autograd.grad((qp + 0.5 * ldp).sum(), (Kp, rp))
+    # autograd of the plain Cholesky gives an unsymmetrized dK; compare the
+    # symmetric part, which is what every symmetric perturbation of K sees
+    dKp = 0.5 * (dKp + dKp.transpose(-1, -2))
+    errs["dK"] = max_err(dK, dKp)
+    errs["dr"] = max_err(dr, drp)
+    ok &= within(errs["dK"], dKp, atol, rtol) and within(errs["dr"], drp, atol, rtol)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(K)
+        return torch.cholesky_solve(r[..., None], L)
+
+    case = {
+        "B": B, "n": n, "dtype": name, "max_abs_err": errs, "atol": atol, "rtol": rtol,
+        "ok": bool(ok), **timings(lambda: qd_cuda(K, r), lambda: qd_plain(K, r), library),
+    }
+    isz = K.element_size()
+    nbytes = isz * B * (2 * n * n + 2 * n + 2)
+    ops = B * (2 * n**3 / 3 + 4 * n * n + n)
+    case["bound_ms"], case["bound_by"] = bound_ms(nbytes, ops, name)
+    return case
+
+
+def phase_k1(gen):
+    import torch
+
+    cases = [
+        k1_case(B, n, dtype, gen)
+        for dtype in (torch.float32, torch.float64)
+        for (B, n) in ((7, 13), (32, 24), (8, 64), (2, 35))
+    ]
+    return {"phase": "k1", "ok": all(c["ok"] for c in cases), "cases": cases}
+
+
+def k2_case(B, n, m, d, kind, dtype, gen, coincident=False):
+    import torch
+
+    from botorch_tpu_torch.ops.kernel_matrix import (
+        kernel_matrix, kernel_matrix_cuda, kernel_matrix_plain,
+    )
+
+    name = str(dtype).split(".")[-1]
+    kw = dict(generator=gen, dtype=torch.float64)
+    # the main path shares the train inputs and scales them per restart
+    x = torch.rand(n, d, **kw).to(dtype).cuda()
+    z = x if coincident else torch.rand(B, m, d, **kw).to(dtype).cuda()
+    ls = (0.1 + torch.rand(B, d, **kw)).to(dtype).cuda()
+    out = kernel_matrix_cuda(x, z, ls, kind)
+    ref = kernel_matrix_plain(x, z, ls, kind)
+    atol = K2_ATOL[name][kind]
+    err = max_err(out, ref)
+    ok = within(err, ref, atol) and out.shape == ref.shape
+    # backward: the op's gradients against autograd of the plain version
+    g = torch.randn(ref.shape, **kw).to(dtype).cuda()
+    inputs = [t.clone().requires_grad_(True) for t in (x, z, ls)]
+    grads = torch.autograd.grad(kernel_matrix(*inputs, kind), inputs, g)
+    inputs_p = [t.clone().requires_grad_(True) for t in (x, z, ls)]
+    grads_p = torch.autograd.grad(kernel_matrix_plain(*inputs_p, kind), inputs_p, g)
+    gerr = max(max_err(a, b) for a, b in zip(grads, grads_p))
+    ok &= math.isfinite(gerr)
+    case = {
+        "B": B, "n": n, "m": m, "d": d, "kind": kind, "dtype": name,
+        "coincident": coincident, "max_abs_err": err, "grad_max_abs_err": gerr,
+        "atol": atol, "ok": bool(ok),
+        **timings(lambda: kernel_matrix_cuda(x, z, ls, kind),
+                  lambda: kernel_matrix_plain(x, z, ls, kind), None),
+    }
+    isz = x.element_size()
+    nbytes = isz * (x.numel() + z.numel() + ls.numel() + B * n * m)
+    ops = B * (2 * n * m * d + 2 * (n + m) * d + 9 * n * m)
+    case["bound_ms"], case["bound_by"] = bound_ms(nbytes, ops, name)
+    return case
+
+
+def phase_k2(gen):
+    import torch
+
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for kind in ("rbf", "matern52", "matern32", "matern12"):
+            cases.append(k2_case(2, 35, 35, 2, kind, dtype, gen, coincident=True))
+            cases.append(k2_case(1, 300, 257, 7, kind, dtype, gen))
+            cases.append(k2_case(6, 35, 1, 2, kind, dtype, gen))
+            cases.append(k2_case(1, 64, 48, 8, kind, dtype, gen))
+            cases.append(k2_case(1, 64, 48, 20, kind, dtype, gen))
+    return {"phase": "k2", "ok": all(c["ok"] for c in cases), "cases": cases}
+
+
+def phase_bo_step():
+    """One step on a 12-point Branin history, on the card and on the CPU
+    (plain versions), from the same restart starts and initial conditions."""
+    import torch
+
+    from botorch_tpu_torch.fit import _prepare_fit
+    from botorch_tpu_torch.loop import BOState, _bo_step, init_state
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.sampling.sobol import sobol_table
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.synthetic import Branin
+    from botorch_tpu_torch.utils.transforms import unnormalize
+
+    prob = Branin(negate=True)
+    state, X0 = init_state(12, 2, 20, seed=3, device="cpu")
+    Y = torch.zeros(20)
+    Y[:12] = prob(unnormalize(X0, prob.bounds))
+    state = BOState(X=state.X, Y=Y, n=12)
+    mask = torch.arange(20) < 12
+    model = make_gp(state.X, state.Y[:, None], mask=mask, device="cpu")
+    _, _, x0, _, _ = _prepare_fit(model, make_generator(1, "cpu"), 2)
+    ics = torch.rand(6, 1, 2, generator=make_generator(2, "cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = BOState(X=state.X.to(dev), Y=state.Y.to(dev), n=12)
+        sob = sobol_table(2, seed=3, device=dev)
+        cand, val, params = _bo_step(
+            st, sob, make_generator(0, dev), num_restarts=6, raw_samples=64,
+            fit_restarts=2, fit_maxiter=15, acq_maxiter=15,
+            fit_x0=x0, initial_conditions=ics,
+        )
+        out[dev] = (cand.cpu(), val.cpu(), params.raw_lengthscale.cpu(), params.raw_noise.cpu())
+    errs = {k: max_err(a, b) for k, a, b in zip(
+        ("candidate", "value", "raw_lengthscale", "raw_noise"), out["cuda"], out["cpu"])}
+    # Both sides run the same L-BFGS in float32 with differently rounded
+    # kernels; 15 fit iterations and 15 ascent iterations keep the paths
+    # together to ~1e-3 on this well-separated problem.
+    ok = all(math.isfinite(e) and e < 2e-2 for e in errs.values())
+    return {"phase": "bo_step", "ok": bool(ok), "max_abs_err": errs, "tol": 2e-2}
+
+
+def phase_bo_loop():
+    import torch
+
+    from botorch_tpu_torch.loop import best_observed, run_bo_loop
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.test_functions.synthetic import Branin
+    from botorch_tpu_torch.utils.transforms import unnormalize
+
+    prob = Branin(negate=True)
+
+    def objective(X):
+        return prob(unnormalize(X, prob.bounds))
+
+    # warm-up (library handles, allocator), then the counted, timed run
+    run_bo_loop(objective, d=2, n_init=10, iterations=2, seed=1, **LOOP_CFG)
+    torch.cuda.synchronize()
+    qd_cuda.launches = 0
+    kernel_matrix_cuda.launches = 0
+    t0 = time.perf_counter()
+    state = run_bo_loop(objective, d=2, n_init=10, iterations=25, seed=0, **LOOP_CFG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mvn_quad_logdet": qd_cuda.launches, "kernel_matrix": kernel_matrix_cuda.launches}
+    regret = -float(best_observed(state)) - BRANIN_OPT
+    X = state.X[: state.n]
+    shape_ok = state.X.shape == (35, 2) and state.n == 35 and state.X.is_cuda
+    finite = bool(torch.isfinite(state.Y[: state.n]).all() and torch.isfinite(X).all())
+    in_box = bool(((X >= 0) & (X <= 1)).all())
+    ok = (shape_ok and finite and in_box and regret < REGRET_BAR
+          and all(v > 0 for v in launches.values()))
+    return {
+        "phase": "bo_loop", "ok": bool(ok), "wall_s": wall, "iterations": 25,
+        "iters_per_s": 25 / wall, "regret": regret, "regret_bar": REGRET_BAR,
+        "launches": launches, "shape_ok": shape_ok, "finite": finite, "in_box": in_box,
+        "last_step": step_breakdown(state),
+    }
+
+
+def step_breakdown(state) -> dict:
+    """Wall time of one BO step at the loop's last history size (34 points)
+    and where its device time goes (profiled in a second, identical call)."""
+    import torch
+
+    from botorch_tpu_torch.loop import BOState, _bo_step
+    from botorch_tpu_torch.sampling.sobol import sobol_table
+    from botorch_tpu_torch.settings import make_generator
+
+    st = BOState(X=state.X, Y=state.Y, n=state.n - 1)
+    sob = sobol_table(2, seed=0, device="cuda")
+
+    def step():
+        return _bo_step(st, sob, make_generator(5, "cuda"), **LOOP_CFG)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = device_profile(step)
+    busy_ms = sum(us for _, us in rows.values()) / 1e3
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
+    pick = lambda tag: next(  # noqa: E731
+        ({"launches": c, "device_ms": us / 1e3} for k, (c, us) in rows.items() if tag in k), None)
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_launches": sum(c for c, _ in rows.values()),
+        "mvn_quad_logdet": pick("mvn_qd_kernel"), "kernel_matrix": pick("kernel_matrix_kernel"),
+        "top_kernels": [{"name": k[:80], "launches": c, "device_ms": us / 1e3} for k, (c, us) in top],
+    }
+
+
+def kernels_line(k1, k2, loop):
+    """One row per kernel at its main-path shape: K1 at the fit's (B=2,
+    n=35) float32; K2 at the fit's (B=2, 35 x 35, d=2) rbf float32."""
+    c1 = next(c for c in k1["cases"] if (c["B"], c["n"], c["dtype"]) == (2, 35, "float32"))
+    c2 = next(c for c in k2["cases"] if (c["B"], c["n"], c["m"], c["d"], c["kind"], c["dtype"])
+              == (2, 35, 35, 2, "rbf", "float32"))
+    rows = [
+        ("mvn_quad_logdet", "botorch_tpu_torch/csrc/mvn_quad_logdet.cu",
+         "botorch_tpu/ops/pallas_linalg.py:134", c1, max(c1["max_abs_err"].values())),
+        ("kernel_matrix", "botorch_tpu_torch/csrc/kernel_matrix.cu",
+         "botorch_tpu/ops/pallas_kernels.py:84", c2, c2["max_abs_err"]),
+    ]
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": loop["launches"][name], "max_abs_err": err, "ms": c["ms"],
+         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+         "library_ms": c["library_ms"]}
+        for name, src, rep, c, err in rows
+    ]}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        import botorch_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: botorch_tpu_torch is not importable: {e}", file=sys.stderr)
+        return 2
+
+    gen = torch.Generator().manual_seed(0)
+    results, failed = {}, []
+    phases = (
+        ("build", phase_build), ("k1", lambda: phase_k1(gen)),
+        ("k2", lambda: phase_k2(gen)), ("bo_step", phase_bo_step),
+        ("bo_loop", phase_bo_loop),
+    )
+    for name, fn in phases:
+        try:
+            res = fn()
+        except Exception:  # a phase that raises is a failed phase
+            traceback.print_exc()
+            res = {"phase": name, "ok": False, "error": traceback.format_exc(limit=3)}
+        res.setdefault("ok", True)
+        results[name] = res
+        emit(res)
+        if not res["ok"]:
+            failed.append(name)
+            if name == "build":
+                break
+    if failed:
+        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+    emit(kernels_line(results["k1"], results["k2"], results["bo_loop"]))
+    print(smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,143 @@
+"""The PyTorch port stands alone: no file of `botorch_tpu_torch/` or
+`chip_smoke.py` imports JAX, flax or the JAX package, every module imports
+on a CPU-only machine, and the entry points default to CUDA without ever
+falling back to the CPU."""
+
+import ast
+import importlib
+import pathlib
+import pkgutil
+
+import numpy as np
+import pytest
+import torch
+
+import botorch_tpu_torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "botorch_tpu")
+
+
+def _port_sources():
+    files = sorted((ROOT / "botorch_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_sources()[:-1],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_reads_no_file_of_the_reference(path):
+    """No string the package computes with names the JAX package's tree
+    (docstrings, which cite reference lines, are not computed with)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = {
+        id(node.body[0].value) for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef, ast.AsyncFunctionDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    bad = [
+        node.value for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and id(node) not in docstrings
+        and ("botorch_tpu/" in node.value or node.value == "botorch_tpu")
+    ]
+    assert not bad, f"{path} names the reference's files: {bad}"
+
+
+def test_sources_exist():
+    names = {p.relative_to(ROOT / "botorch_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    for mod in (
+        "settings.py", "convert.py", "fit.py", "loop.py",
+        "utils/safe_math.py", "utils/probability.py", "utils/transforms.py",
+        "sampling/sobol.py", "test_functions/synthetic.py",
+        "ops/kernels.py", "ops/kernel_matrix.py", "ops/chol.py",
+        "ops/mvn_linalg.py", "ops/lbfgs.py", "models/priors.py",
+        "models/gp.py", "posteriors/gaussian.py", "acquisition/analytic.py",
+        "optim/optimize.py",
+    ):
+        assert mod in names, mod
+    csrc = {p.name for p in (ROOT / "botorch_tpu_torch" / "csrc").glob("*.cu")}
+    assert csrc == {"mvn_quad_logdet.cu", "kernel_matrix.cu"}
+
+
+def test_all_modules_import():
+    failures = []
+    for mod in pkgutil.walk_packages(botorch_tpu_torch.__path__, prefix="botorch_tpu_torch."):
+        try:
+            importlib.import_module(mod.name)
+        except Exception as e:  # pragma: no cover
+            failures.append((mod.name, repr(e)))
+    assert not failures, failures
+
+
+def test_precision_policy_set_at_import():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_entry_points_default_to_cuda():
+    from botorch_tpu_torch.settings import resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    X = np.random.default_rng(0).uniform(size=(5, 2))
+    Y = X.sum(-1)
+    from botorch_tpu_torch.fit import fit_gp
+    from botorch_tpu_torch.loop import run_bo_loop
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.optim.optimize import optimize_acqf
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_gp(X, Y)
+    model = make_gp(X, Y, device="cpu")
+    assert model.X.device.type == "cpu" and model.X.dtype == torch.float32
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_gp(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimize_acqf(lambda X: X.sum((-1, -2)), [[0.0, 0.0], [1.0, 1.0]], q=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_bo_loop(lambda X: X.sum(-1), d=2, n_init=3, iterations=1)
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper takes its plain version only for a CPU tensor."""
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix
+    from botorch_tpu_torch.ops.mvn_linalg import mvn_quad_logdet
+
+    x = torch.zeros(3, 2, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernel_matrix(x, x, torch.ones(2, device="meta"), "rbf")
+    K = torch.zeros(2, 3, 3, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        mvn_quad_logdet(K, torch.zeros(2, 3, device="meta"))
+
+
+def test_float64_is_opt_in():
+    from botorch_tpu_torch.models.gp import make_gp
+
+    X = np.random.default_rng(1).uniform(size=(4, 2))
+    m = make_gp(X, X[:, 0], device="cpu", dtype=torch.float64)
+    assert m.X.dtype == torch.float64 and m.params.raw_noise.dtype == torch.float64
+    with pytest.raises(ValueError):
+        make_gp(X, X[:, 0], device="cpu", dtype=torch.float16)
