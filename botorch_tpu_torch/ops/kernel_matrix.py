@@ -5,8 +5,10 @@ kernel `_pallas_kernel_matrix` this replaces. The CUDA source is
 `csrc/kernel_matrix.cu` (its header says what bounds it on an H100 and how
 its design answers that).
 
-* `kernel_matrix_cuda` launches the CUDA kernel; `kernel_matrix_cuda.launches`
-  counts its launches.
+* `kernel_matrix_cuda` launches the CUDA kernel on the path and launch
+  shape that `k2_plan` picks (narrow: one thread per output, for the
+  acquisition's m = 1 shapes; tiled: register micro-tiles, for large
+  n * m); `kernel_matrix_cuda.launches` counts its launches.
 * `kernel_matrix_plain` is the plain PyTorch version (the raw kernels of
   `ops/kernels.py`): the CPU path, and the reference the kernel is held to.
 * `kernel_matrix` is the differentiable op the models call. A CPU tensor
@@ -18,6 +20,7 @@ its design answers that).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -31,6 +34,46 @@ _KIND = {"rbf": 0, "matern52": 1, "matern32": 2, "matern12": 3}
 _KIND_DTYPES = (torch.float32, torch.float64)
 _FNS: dict = {}
 
+NARROW_MAX_OUTPUTS = 4096  # n * m per problem up to which one thread takes one output
+NARROW_MAX_THREADS = 128
+TILE_ROWS_PER_THREAD = (4, 2, 1)  # tiled path: a 16 * rm x 32 output tile per block
+TILE_COLS = 32
+MAX_GRID_YZ = 65535
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k2_plan(B: int, n: int, m: int, d: int, dtype: torch.dtype, num_sms: int) -> dict:
+    """K2's path and launch shape for B problems of n x m outputs over d
+    features in `dtype`, on a card of `num_sms` streaming multiprocessors.
+
+    `narrow` (n * m <= 4096): one thread per output, a block of at most 128
+    threads and as few as 32, grid (outputs / block, batch); the feature
+    loop is unrolled for d <= 2, <= 8 or <= 32 (`d_bucket`; chunks of 32
+    above). `tiled`: 128 threads per 16 * rm x 32 tile, with the largest rm
+    in (4, 2, 1) whose grid still covers the SMs; each thread stores its
+    four columns with 16-byte stores when every row starts 16-byte aligned.
+    """
+    nm = n * m
+    batch_blocks = min(B, MAX_GRID_YZ)
+    if nm <= NARROW_MAX_OUTPUTS:
+        threads = min(NARROW_MAX_THREADS, 32 * max(1, _cdiv(nm, 32)))
+        return {
+            "path": "narrow", "threads": threads,
+            "d_bucket": 2 if d <= 2 else 8 if d <= 8 else 32,
+            "grid": (_cdiv(nm, threads), batch_blocks, 1),
+        }
+    for rm in TILE_ROWS_PER_THREAD:
+        grid = (_cdiv(m, TILE_COLS), _cdiv(n, 16 * rm), batch_blocks)
+        if math.prod(grid) >= num_sms:
+            break
+    return {
+        "path": "tiled", "threads": 128, "rows_per_thread": rm, "grid": grid,
+        "vector_stores": m % (16 // dtype.itemsize) == 0,
+    }
+
 
 def kernel_matrix_plain(x: Tensor, z: Tensor, lengthscale: Tensor, kind: str) -> Tensor:
     """Plain PyTorch version of K2."""
@@ -38,21 +81,29 @@ def kernel_matrix_plain(x: Tensor, z: Tensor, lengthscale: Tensor, kind: str) ->
 
 
 def _functions():
+    """`{(path, dtype): C entry point}`; each takes x, z, ls, out, B, n, m,
+    d, the three batch strides, the kind, two path parameters and the
+    stream."""
     if not _FNS:
         lib = cuda_build.load("kernel_matrix")
-        for dtype, fn in (
-            (torch.float32, lib.bt_kernel_matrix_f32),
-            (torch.float64, lib.bt_kernel_matrix_f64),
-        ):
-            fn.argtypes = (
-                [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 3
-                + [ctypes.c_int, ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-            _FNS[dtype] = fn
+        for path in ("narrow", "tiled"):
+            for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
+                fn = getattr(lib, f"bt_kernel_matrix_{path}_{suffix}")
+                fn.argtypes = (
+                    [ctypes.c_void_p] * 4
+                    + [ctypes.c_int] * 4
+                    + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p]
+                )
+                fn.restype = ctypes.c_int
+                _FNS[path, dtype] = fn
     return _FNS
+
+
+@functools.cache
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _batched(t: Tensor, batch: tuple, inner: tuple) -> tuple[Tensor, int]:
@@ -89,12 +140,17 @@ def kernel_matrix_cuda(x: Tensor, z: Tensor, lengthscale: Tensor, kind: str) -> 
     out = torch.empty((*batch, n, m), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _functions()[x.dtype]
+    plan = k2_plan(B, n, m, d, x.dtype, _num_sms(x.device))
+    if plan["path"] == "narrow":
+        params = (plan["d_bucket"], plan["threads"])
+    else:
+        params = (plan["rows_per_thread"], int(plan["vector_stores"]))
+    fn = _functions()[plan["path"], x.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(
             xb.data_ptr(), zb.data_ptr(), lb.data_ptr(), out.data_ptr(),
-            B, n, m, d, sx, sz, sl, _KIND[kind], stream,
+            B, n, m, d, sx, sz, sl, _KIND[kind], *params, stream,
         )
     cuda_build.check(status, "kernel_matrix")
     kernel_matrix_cuda.launches += 1

@@ -12,9 +12,12 @@ backward (`dK = g_ld K^-1 - g_quad a a^T`, `dr = 2 g_quad a`, `a = K^-1 r`):
 no factorization in the backward pass.
 
 * n <= 64: leading dims are flattened into one batch and the batch goes to
-  K1. `qd_cuda` launches the kernel (`qd_cuda.launches` counts launches);
-  `qd_plain` is its plain PyTorch version, the CPU path and the reference
-  the kernel is held to. A CUDA tensor launches the kernel or raises.
+  K1, which returns `(quad, logdet, alpha, Kinv)`: the kernel forms
+  `Kinv = L^-T L^-1` itself, as `_qd_pallas` returns it. `qd_cuda` launches
+  the kernel (`qd_cuda.launches` counts launches) with the launch shape of
+  `k1_launch`; `qd_plain` is its plain PyTorch version, the CPU path and the
+  reference the kernel is held to. A CUDA tensor launches the kernel or
+  raises.
 * n > 64: `_QdLarge`, one library factorization in the forward and the same
   closed-form backward (the JAX package runs this path in XLA, not Pallas).
 """
@@ -30,8 +33,35 @@ from botorch_tpu_torch.ops.chol import cholesky_nan
 
 Tensor = torch.Tensor
 
-MAX_N = 64  # the kernel holds one matrix per block in shared memory
+MAX_N = 64  # the kernel holds one matrix per block of 32 or 64 threads in shared memory
+CHUNK = 16  # columns per chunk of the kernel's inner loops (`kChunk` in the source)
 _FNS: dict = {}
+
+
+def k1_launch(B: int, n: int, dtype: torch.dtype) -> dict:
+    """K1's launch shape for `B` matrices of size `n` in `dtype`.
+
+    One block of 32 threads (n <= 32) or 64 threads (n > 32) per matrix,
+    thread t owning row t; an SM runs up to 32 such blocks at once, so a
+    large batch needs no packing of matrices into one block. A matrix holds
+    2 (n + 1) + 6 rows of `ld` elements in shared memory (L, X^T = L^-T,
+    and six vectors). `ld` is at least n + 15, so the kernel's chunks of 16
+    columns stay inside a row, and `ld` times the element size is 16 bytes
+    times an odd number, so 16-byte loads of the threads' own rows fall in
+    distinct banks. Above 48 KB a block the kernel opts into more shared
+    memory (89,216 bytes for a float64 matrix of n = 64)."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"K1 takes 1 <= n <= {MAX_N}, got n = {n}")
+    per_vec = 16 // dtype.itemsize  # elements in 16 bytes
+    ld = n + CHUNK - 1
+    while ld % (2 * per_vec) != per_vec:
+        ld += 1
+    return {
+        "threads_per_matrix": 32 if n <= 32 else 64,
+        "blocks": B,
+        "ld": ld,
+        "smem_bytes": (2 * (n + 1) + 6) * ld * dtype.itemsize,
+    }
 
 
 def tril_inverse(L: Tensor) -> Tensor:
@@ -44,7 +74,7 @@ def tril_inverse(L: Tensor) -> Tensor:
 
 def qd_plain(K: Tensor, r: Tensor):
     """Plain PyTorch version of K1. `K (B, n, n)`, `r (B, n)` ->
-    `(quad (B,), logdet (B,), alpha (B, n), Linv (B, n, n))`; a matrix that
+    `(quad (B,), logdet (B,), alpha (B, n), Kinv (B, n, n))`; a matrix that
     does not factor gives NaN, as the kernel's rsqrt of a bad pivot does."""
     L = cholesky_nan(K)
     w = torch.linalg.solve_triangular(L, r[..., None], upper=False)
@@ -52,7 +82,8 @@ def qd_plain(K: Tensor, r: Tensor):
     w = w[..., 0]
     quad = torch.sum(w * w, dim=-1)
     ld = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
-    return quad, ld, alpha, tril_inverse(L)
+    Linv = tril_inverse(L)
+    return quad, ld, alpha, torch.matmul(Linv.transpose(-1, -2), Linv)
 
 
 def _functions():
@@ -62,7 +93,7 @@ def _functions():
             (torch.float32, lib.bt_mvn_qd_f32),
             (torch.float64, lib.bt_mvn_qd_f64),
         ):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _FNS[dtype] = fn
     return _FNS
@@ -78,26 +109,26 @@ def qd_cuda(K: Tensor, r: Tensor):
     if K.ndim != 3 or K.shape[-1] != K.shape[-2] or r.shape != K.shape[:2]:
         raise ValueError(f"K1 needs K (B, n, n) and r (B, n), got {K.shape}, {r.shape}")
     B, n = r.shape
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"K1 takes 1 <= n <= {MAX_N}, got n = {n}")
+    shape = k1_launch(B, n, K.dtype)
     K = K.contiguous()
     r = r.contiguous()
     quad = torch.empty((B,), dtype=K.dtype, device=K.device)
     logdet = torch.empty_like(quad)
     alpha = torch.empty((B, n), dtype=K.dtype, device=K.device)
-    linv = torch.empty((B, n, n), dtype=K.dtype, device=K.device)
+    kinv = torch.empty((B, n, n), dtype=K.dtype, device=K.device)
     if B == 0:
-        return quad, logdet, alpha, linv
+        return quad, logdet, alpha, kinv
     fn = _functions()[K.dtype]
     with torch.cuda.device(K.device):
         stream = torch.cuda.current_stream(K.device).cuda_stream
         status = fn(
             K.data_ptr(), r.data_ptr(), quad.data_ptr(), logdet.data_ptr(),
-            alpha.data_ptr(), linv.data_ptr(), B, n, stream,
+            alpha.data_ptr(), kinv.data_ptr(), B, n, shape["threads_per_matrix"],
+            shape["ld"], stream,
         )
     cuda_build.check(status, "mvn_quad_logdet")
     qd_cuda.launches += 1
-    return quad, logdet, alpha, linv
+    return quad, logdet, alpha, kinv
 
 
 qd_cuda.launches = 0
@@ -106,14 +137,10 @@ qd_cuda.launches = 0
 def _qd_core(K: Tensor, r: Tensor):
     """`(quad, logdet, alpha, Kinv)` for `K (B, n, n)`, `r (B, n)`."""
     if K.device.type == "cpu":
-        quad, ld, alpha, Linv = qd_plain(K, r)
-    elif K.device.type == "cuda":
-        quad, ld, alpha, Linv = qd_cuda(K, r)
-    else:
-        raise ValueError(f"K1 runs on CPU or CUDA tensors, got {K.device}")
-    # Kinv = Linv^T Linv, a batched matmul outside the kernel (full f32).
-    Kinv = torch.matmul(Linv.transpose(-1, -2), Linv)
-    return quad, ld, alpha, Kinv
+        return qd_plain(K, r)
+    if K.device.type == "cuda":
+        return qd_cuda(K, r)
+    raise ValueError(f"K1 runs on CPU or CUDA tensors, got {K.device}")
 
 
 def _closed_form_grads(alpha, kinv, g_quad, g_ld):

@@ -7,18 +7,29 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, each printing one JSON line:
   1. build: compile both CUDA kernels from `botorch_tpu_torch/csrc/` (one
      nvcc process per source, all at once);
-  2. k1: kernel K1 (`mvn_quad_logdet`) against its plain PyTorch version,
-     forward and backward, in float32 and float64, with times;
-  3. k2: kernel K2 (`kernel_matrix`) against its plain version for the four
-     kernels, forward and backward, with times;
+  2. k1: kernel K1 (`mvn_quad_logdet`) against its plain PyTorch version
+     (quad, logdet, alpha, Kinv and the closed-form gradients), in float32
+     and float64, with times beside the library yardstick and the card's
+     launch floor; Kinv must be exactly symmetric, and the differentiable op
+     must launch K1 alone (no GEMM for Kinv);
+  3. k2: kernel K2 (`kernel_matrix`) against its plain version (values:
+     the plain version in float64 on the same inputs) for the four
+     kernels at the loop's launch shapes and larger ones, values and
+     gradients each within a stated tolerance, with times and the floor,
+     and the device launches of the op's forward and backward;
   4. bo_step: one BO step on the card against the same step on the CPU
      (plain versions), with the same restart starts and initial conditions;
   5. bo_loop: the config-1 BO loop (SingleTaskGP + LogEI on Branin, d=2,
      n_init=10, 25 iterations, num_restarts=6, raw_samples=64,
      fit_restarts=2, fit_maxiter=15, acq_maxiter=15, seed 0) through
-     `run_bo_loop`, with each kernel's launch count over the run.
-Then the per-kernel summary line, the card's name and power limit, and
-the final status line. Any failed phase makes the script exit non-zero;
+     `run_bo_loop`, with each kernel's launch count over the run, and one
+     step at the last history size: wall and device time, idle share, the
+     kernels' launches and K2's launches by shape and path.
+The k1 and k2 phases also carry the card's SM clock and power, sampled
+by `nvidia-smi` while they run, and `floor_ms`: the device time of `add_`
+on a one-element tensor, the shortest kernel the card runs. Then the
+per-kernel summary line, the card's name and power limit, and the final
+status line. Any failed phase makes the script exit non-zero;
 without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -44,12 +55,33 @@ PEAK_OPS_S = {"float32": 67e12, "float64": 34e12}
 # float32: both sides round differently in sums of ~n terms; Kinv and dK
 # carry the condition number (< 10 for the K1 test matrices).
 K1_TOL = {"float32": (1e-5, 2e-5), "float64": (1e-12, 1e-11)}
-# matern12 = exp(-r) with r = sqrt(d2) has unit slope at r = 0, so the
-# float32 cancellation error of d2 (~1e-7 at coincident points) becomes
-# ~3e-4 in the output there; the smooth kernels see only ~1e-7.
+K1_OUTPUTS = ("quad", "logdet", "alpha", "kinv")
+# K2 is held to its plain version evaluated in float64 on the same inputs.
+# The plain version expands d2 = |xs|^2 + |zs|^2 - 2 xs.zs,
+# whose cancellation keeps rounding steps of |xs|^2 (up to ~1e3 here):
+# in float32 that version is itself off by more than 1e-5 at the wider
+# inputs (`plain_max_abs_err` of each case). K2 sums d2 from the
+# differences, a few rounding steps of d2 itself, well inside 1e-5.
+# matern12 = exp(-r) with r = sqrt(d2) has unit slope at r = 0: at
+# coincident points K2 gives d2 = 0 exactly while the float64 expansion
+# leaves ~1e-14, i.e. ~1e-7 in the output (the float64 bound).
 K2_ATOL = {
     "float32": {"rbf": 1e-5, "matern52": 1e-5, "matern32": 1e-5, "matern12": 2e-3},
     "float64": {"rbf": 1e-12, "matern52": 1e-12, "matern32": 1e-12, "matern12": 1e-7},
+}
+# K2's gradients (x, z, lengthscale) against autograd of the plain version,
+# as (atol, rtol) of max |grad - ref| <= atol + rtol * max |ref|. The op's
+# backward is itself autograd of the plain version, so today this holds
+# only its wiring (the saved inputs, `needs_input_grad`), not CUDA code;
+# the tolerances are set for a backward kernel, whose sums of up to n or m
+# products of O(max |ref|) terms would round in another order: rtol 1e-5
+# in float32, 1e-11 in float64. matern12 at coincident points has its own:
+# its derivative in d2 is exp(-r) / (2 r), so the ~1e-7 cancellation error
+# of the plain version's float32 d2 next to the diagonal grows to ~1e-3
+# relative there.
+K2_GRAD_TOL = {
+    "float32": {"smooth": (1e-6, 1e-5), "matern12_coincident": (1e-6, 2e-3)},
+    "float64": {"smooth": (1e-14, 1e-11), "matern12_coincident": (1e-14, 1e-7)},
 }
 
 
@@ -63,6 +95,44 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+class ClockSampler:
+    """Samples `nvidia-smi --query-gpu=clocks.sm,power.draw,power.limit`
+    every 100 ms while a phase runs; `summary()` gives the SM clock (MHz)
+    and power draw (W) seen, with the limit. The sampler is stopped on exit."""
+
+    QUERY = "--query-gpu=clocks.sm,power.draw,power.limit"
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", self.QUERY, "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        )
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.rows = []
+        for line in out.splitlines():
+            try:
+                self.rows.append([float(v) for v in line.split(",")[:3]])
+            except ValueError:
+                continue
+        return False
+
+    def summary(self) -> dict:
+        if not self.rows:
+            return {"samples": 0}
+        clk, draw, limit = zip(*self.rows)
+        return {"samples": len(self.rows), "sm_mhz_min": min(clk), "sm_mhz_max": max(clk),
+                "sm_mhz_median": sorted(clk)[len(clk) // 2], "power_w_max": max(draw),
+                "power_limit_w": limit[0]}
 
 
 def time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
@@ -134,11 +204,22 @@ def timings(kernel, plain, library) -> dict:
     wrapper and the plain version (`*call_ms`)."""
     ms, how = device_ms(kernel)
     plain_ms, _ = device_ms(plain)
+    # the library yardstick is the median of three profiles: one profile in
+    # a run once caught a fraction of cuSOLVER's kernels
+    library_ms = None if library is None else sorted(device_ms(library)[0] for _ in range(3))[1]
     return {
-        "ms": ms, "plain_ms": plain_ms,
-        "library_ms": None if library is None else device_ms(library)[0],
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "timing": how, "call_ms": time_ms(kernel), "plain_call_ms": time_ms(plain),
     }
+
+
+def floor_ms() -> float:
+    """Device time of `add_` on a one-element CUDA tensor: the shortest
+    kernel this card runs, the floor under every small launch."""
+    import torch
+
+    t = torch.zeros(1, device="cuda")
+    return device_ms(lambda: t.add_(1.0), reps=200)[0]
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -168,7 +249,7 @@ def _spd(B, n, dtype, gen):
     return K.to(dtype).cuda(), r.to(dtype).cuda()
 
 
-def k1_case(B, n, dtype, gen):
+def k1_case(B, n, dtype, gen, floor):
     import torch
 
     from botorch_tpu_torch.ops.mvn_linalg import mvn_quad_logdet, qd_cuda, qd_plain
@@ -179,9 +260,11 @@ def k1_case(B, n, dtype, gen):
     atol, rtol = K1_TOL[name]
     got = qd_cuda(K, r)
     ref = qd_plain(K, r)
-    for key, a, b in zip(("quad", "logdet", "alpha", "linv"), got, ref):
+    for key, a, b in zip(K1_OUTPUTS, got, ref):
         errs[key] = max_err(a, b)
         ok &= within(errs[key], b, atol, rtol)
+    symmetric = bool((got[3] == got[3].transpose(-1, -2)).all())
+    ok &= symmetric
     # backward: the kernel's closed form against autograd of the plain version
     Kg = K.clone().requires_grad_(True)
     rg = r.clone().requires_grad_(True)
@@ -204,31 +287,69 @@ def k1_case(B, n, dtype, gen):
 
     case = {
         "B": B, "n": n, "dtype": name, "max_abs_err": errs, "atol": atol, "rtol": rtol,
-        "ok": bool(ok), **timings(lambda: qd_cuda(K, r), lambda: qd_plain(K, r), library),
+        "kinv_symmetric": symmetric, "ok": bool(ok),
+        **timings(lambda: qd_cuda(K, r), lambda: qd_plain(K, r), library), "floor_ms": floor,
     }
+    case["vs_library"] = case["ms"] / case["library_ms"]
     isz = K.element_size()
+    # reads K and r, writes quad, logdet, alpha and Kinv
     nbytes = isz * B * (2 * n * n + 2 * n + 2)
-    ops = B * (2 * n**3 / 3 + 4 * n * n + n)
+    # Cholesky n^3/3 multiply-adds, L^-1 n^3/6, Kinv n^3/6, w and alpha n^2
+    ops = B * (4 * n**3 / 3 + 2 * n * n + 2 * n)
     case["bound_ms"], case["bound_by"] = bound_ms(nbytes, ops, name)
     return case
+
+
+# the last two fill every SM with more than one matrix's block
+K1_SHAPES = ((7, 13), (32, 24), (8, 64), (2, 35)) + tuple(
+    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)) + ((200, 35), (200, 64))
+
+
+def k1_op_kernels() -> dict:
+    """The device kernels of one forward and backward of the differentiable
+    op at the fit's shape: K1 alone forward (it writes Kinv), elementwise
+    kernels backward, and no GEMM anywhere."""
+    import torch
+
+    from botorch_tpu_torch.ops.mvn_linalg import mvn_quad_logdet
+
+    K, r = _spd(2, 35, torch.float32, torch.Generator().manual_seed(1))
+    Kg = K.clone().requires_grad_(True)
+
+    def fwd():
+        return mvn_quad_logdet(Kg.detach(), r)
+
+    def fwd_bwd():
+        q, ld = mvn_quad_logdet(Kg, r)
+        torch.autograd.grad((q + ld).sum(), Kg)
+
+    names = {label: sorted(device_profile(fn, 3)) for label, fn in (("forward", fwd), ("forward_backward", fwd_bwd))}
+    ok = (len(names["forward"]) == 1 and "mvn_qd_kernel" in names["forward"][0]
+          and not any("gemm" in k.lower() for k in names["forward_backward"]))
+    return {"ok": bool(ok), **names}
 
 
 def phase_k1(gen):
     import torch
 
-    cases = [
-        k1_case(B, n, dtype, gen)
-        for dtype in (torch.float32, torch.float64)
-        for (B, n) in ((7, 13), (32, 24), (8, 64), (2, 35))
-    ]
-    return {"phase": "k1", "ok": all(c["ok"] for c in cases), "cases": cases}
+    with ClockSampler() as clocks:
+        floor = floor_ms()
+        cases = [
+            k1_case(B, n, dtype, gen, floor)
+            for dtype in (torch.float32, torch.float64)
+            for (B, n) in K1_SHAPES
+        ]
+        op = k1_op_kernels()
+    ok = all(c["ok"] for c in cases) and op["ok"]
+    return {"phase": "k1", "ok": ok, "floor_ms": floor, "clocks": clocks.summary(),
+            "op_kernels": op, "cases": cases}
 
 
-def k2_case(B, n, m, d, kind, dtype, gen, coincident=False):
+def k2_case(B, n, m, d, kind, dtype, gen, floor, coincident=False):
     import torch
 
     from botorch_tpu_torch.ops.kernel_matrix import (
-        kernel_matrix, kernel_matrix_cuda, kernel_matrix_plain,
+        k2_plan, kernel_matrix, kernel_matrix_cuda, kernel_matrix_plain,
     )
 
     name = str(dtype).split(".")[-1]
@@ -238,25 +359,32 @@ def k2_case(B, n, m, d, kind, dtype, gen, coincident=False):
     z = x if coincident else torch.rand(B, m, d, **kw).to(dtype).cuda()
     ls = (0.1 + torch.rand(B, d, **kw)).to(dtype).cuda()
     out = kernel_matrix_cuda(x, z, ls, kind)
-    ref = kernel_matrix_plain(x, z, ls, kind)
+    ref = kernel_matrix_plain(x.double(), z.double(), ls.double(), kind)
     atol = K2_ATOL[name][kind]
     err = max_err(out, ref)
-    ok = within(err, ref, atol) and out.shape == ref.shape
+    plain_err = max_err(kernel_matrix_plain(x, z, ls, kind), ref)
+    ok = within(err, ref, atol) and out.shape == ref.shape and out.dtype == dtype
     # backward: the op's gradients against autograd of the plain version
     g = torch.randn(ref.shape, **kw).to(dtype).cuda()
     inputs = [t.clone().requires_grad_(True) for t in (x, z, ls)]
     grads = torch.autograd.grad(kernel_matrix(*inputs, kind), inputs, g)
     inputs_p = [t.clone().requires_grad_(True) for t in (x, z, ls)]
     grads_p = torch.autograd.grad(kernel_matrix_plain(*inputs_p, kind), inputs_p, g)
-    gerr = max(max_err(a, b) for a, b in zip(grads, grads_p))
-    ok &= math.isfinite(gerr)
+    gtol = K2_GRAD_TOL[name]["matern12_coincident" if kind == "matern12" and coincident else "smooth"]
+    gerr = {}
+    for key, a, b in zip(("x", "z", "lengthscale"), grads, grads_p):
+        gerr[key] = max_err(a, b)
+        ok &= within(gerr[key], b, *gtol)
+    plan = k2_plan(B, n, m, d, dtype, torch.cuda.get_device_properties(0).multi_processor_count)
     case = {
         "B": B, "n": n, "m": m, "d": d, "kind": kind, "dtype": name,
-        "coincident": coincident, "max_abs_err": err, "grad_max_abs_err": gerr,
-        "atol": atol, "ok": bool(ok),
+        "coincident": coincident, "path": plan["path"], "max_abs_err": err,
+        "plain_max_abs_err": plain_err, "grad_max_abs_err": gerr, "atol": atol, "grad_tol": gtol, "ok": bool(ok),
         **timings(lambda: kernel_matrix_cuda(x, z, ls, kind),
                   lambda: kernel_matrix_plain(x, z, ls, kind), None),
+        "floor_ms": floor,
     }
+    case["vs_floor"] = case["ms"] / floor
     isz = x.element_size()
     nbytes = isz * (x.numel() + z.numel() + ls.numel() + B * n * m)
     ops = B * (2 * n * m * d + 2 * (n + m) * d + 9 * n * m)
@@ -264,18 +392,50 @@ def k2_case(B, n, m, d, kind, dtype, gen, coincident=False):
     return case
 
 
+# (B, n, m, d): the fit's train covariance and `train_chol`'s (x = z), a
+# large tiled shape, the acquisition's k(X, x) and k(x, x) for the 6
+# restarts and the 64 raw points (as a profiled step launches them), the
+# same at 80 points, and wider feature counts
+K2_SHAPES = ((2, 35, 35, 2), (1, 35, 35, 2), (1, 300, 257, 7), (6, 35, 1, 2), (6, 1, 1, 2),
+             (64, 35, 1, 2), (64, 1, 1, 2), (80, 35, 1, 2), (80, 1, 1, 2), (1, 64, 48, 8),
+             (1, 64, 48, 20))
+
+
+def k2_op_launches() -> dict:
+    """Device launches of the op's forward (K2 alone) and of its backward
+    (autograd of the plain version) at the fit's shape, rbf float32."""
+    import torch
+
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix
+
+    x = torch.rand(35, 2, device="cuda", requires_grad=True)
+    ls = torch.full((2, 2), 0.5, device="cuda", requires_grad=True)
+    g = torch.ones(2, 35, 35, device="cuda")
+
+    def fwd():
+        return kernel_matrix(x, x, ls, "rbf")
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (x, ls), g)
+
+    forward = sum(c for c, _ in device_profile(fwd).values())
+    both = sum(c for c, _ in device_profile(fwd_bwd).values())
+    return {"forward": forward, "backward": both - forward}
+
+
 def phase_k2(gen):
     import torch
 
     cases = []
-    for dtype in (torch.float32, torch.float64):
-        for kind in ("rbf", "matern52", "matern32", "matern12"):
-            cases.append(k2_case(2, 35, 35, 2, kind, dtype, gen, coincident=True))
-            cases.append(k2_case(1, 300, 257, 7, kind, dtype, gen))
-            cases.append(k2_case(6, 35, 1, 2, kind, dtype, gen))
-            cases.append(k2_case(1, 64, 48, 8, kind, dtype, gen))
-            cases.append(k2_case(1, 64, 48, 20, kind, dtype, gen))
-    return {"phase": "k2", "ok": all(c["ok"] for c in cases), "cases": cases}
+    with ClockSampler() as clocks:
+        floor = floor_ms()
+        for dtype in (torch.float32, torch.float64):
+            for kind in ("rbf", "matern52", "matern32", "matern12"):
+                for B, n, m, d in K2_SHAPES:
+                    coincident = (n, m) == (35, 35)
+                    cases.append(k2_case(B, n, m, d, kind, dtype, gen, floor, coincident))
+    return {"phase": "k2", "ok": all(c["ok"] for c in cases), "floor_ms": floor,
+            "clocks": clocks.summary(), "op_launches": k2_op_launches(), "cases": cases}
 
 
 def phase_bo_step():
@@ -382,34 +542,76 @@ def step_breakdown(state) -> dict:
     rows = device_profile(step)
     busy_ms = sum(us for _, us in rows.values()) / 1e3
     top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
-    pick = lambda tag: next(  # noqa: E731
-        ({"launches": c, "device_ms": us / 1e3} for k, (c, us) in rows.items() if tag in k), None)
+
+    def pick(tag):
+        hits = [(c, us) for k, (c, us) in rows.items() if tag in k]
+        return {"launches": sum(c for c, _ in hits), "device_ms": sum(us for _, us in hits) / 1e3}
+
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches": sum(c for c, _ in rows.values()),
-        "mvn_quad_logdet": pick("mvn_qd_kernel"), "kernel_matrix": pick("kernel_matrix_kernel"),
+        "mvn_quad_logdet": pick("mvn_qd_kernel"), "kernel_matrix": pick("kernel_matrix_"),
+        "gemm": pick("gemm"),
+        "kernel_matrix_shapes": k2_shapes_of(step),
         "top_kernels": [{"name": k[:80], "launches": c, "device_ms": us / 1e3} for k, (c, us) in top],
     }
 
 
+def k2_shapes_of(step) -> list:
+    """K2 launches of one call of `step` by (B, n, m, d) and path, counted by
+    wrapping the wrapper that `_KernelMatrix` calls for this one call."""
+    from collections import Counter
+
+    import torch
+
+    from botorch_tpu_torch.ops import kernel_matrix as km
+
+    inner = km.kernel_matrix_cuda
+    seen = Counter()
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def counting(x, z, lengthscale, kind):
+        out = inner(x, z, lengthscale, kind)
+        B = out.numel() // max(1, out.shape[-1] * out.shape[-2])
+        n, m, d = out.shape[-2], out.shape[-1], x.shape[-1]
+        seen[(B, n, m, d, km.k2_plan(B, n, m, d, x.dtype, num_sms)["path"])] += 1
+        return out
+
+    counting.launches = 0  # the wrapper counts its launches on the name it is called by
+    km.kernel_matrix_cuda = counting
+    try:
+        step()
+    finally:
+        km.kernel_matrix_cuda = inner
+    return [{"B": B, "n": n, "m": m, "d": d, "path": path, "launches": c}
+            for (B, n, m, d, path), c in seen.most_common()]
+
+
 def kernels_line(k1, k2, loop):
     """One row per kernel at its main-path shape: K1 at the fit's (B=2,
-    n=35) float32; K2 at the fit's (B=2, 35 x 35, d=2) rbf float32."""
+    n=35) float32; K2 at the fit's (B=2, 35 x 35, d=2) and at the
+    acquisition's (B=6, 35 x 1, d=2), where it launches most, rbf float32.
+    Every number but `bound_ms` is measured in this run."""
     c1 = next(c for c in k1["cases"] if (c["B"], c["n"], c["dtype"]) == (2, 35, "float32"))
-    c2 = next(c for c in k2["cases"] if (c["B"], c["n"], c["m"], c["d"], c["kind"], c["dtype"])
-              == (2, 35, 35, 2, "rbf", "float32"))
+
+    def k2_at(shape):
+        return next(c for c in k2["cases"] if (c["B"], c["n"], c["m"], c["d"]) == shape
+                    and (c["kind"], c["dtype"]) == ("rbf", "float32"))
+
     rows = [
         ("mvn_quad_logdet", "botorch_tpu_torch/csrc/mvn_quad_logdet.cu",
-         "botorch_tpu/ops/pallas_linalg.py:134", c1, max(c1["max_abs_err"].values())),
-        ("kernel_matrix", "botorch_tpu_torch/csrc/kernel_matrix.cu",
-         "botorch_tpu/ops/pallas_kernels.py:84", c2, c2["max_abs_err"]),
+         "botorch_tpu/ops/pallas_linalg.py:134", (2, 35), c1, max(c1["max_abs_err"].values())),
     ]
+    for shape in ((2, 35, 35, 2), (6, 35, 1, 2)):
+        c2 = k2_at(shape)
+        rows.append(("kernel_matrix", "botorch_tpu_torch/csrc/kernel_matrix.cu",
+                     "botorch_tpu/ops/pallas_kernels.py:84", shape, c2, c2["max_abs_err"]))
     return {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": loop["launches"][name], "max_abs_err": err, "ms": c["ms"],
-         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-         "library_ms": c["library_ms"]}
-        for name, src, rep, c, err in rows
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "shape": list(shape),
+         "dtype": "float32", "launches": loop["launches"][name], "max_abs_err": err,
+         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+         "bound_by": c["bound_by"], "library_ms": c["library_ms"], "floor_ms": c["floor_ms"]}
+        for name, src, rep, shape, c, err in rows
     ]}
 
 

@@ -15,6 +15,12 @@ import torch
 pytestmark = pytest.mark.cuda
 
 KINDS = ["rbf", "matern52", "matern32", "matern12"]
+K1_SHAPES = [(7, 13), (32, 24), (8, 64), (2, 35), (3, 1)] + [
+    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)] + [(200, 35), (200, 64)]
+K2_SHAPES = [(2, 35, 35, 2, True), (1, 35, 35, 2, True), (1, 300, 257, 7, False),
+             (6, 35, 1, 2, False), (6, 1, 1, 2, False), (64, 35, 1, 2, False),
+             (64, 1, 1, 2, False), (80, 35, 1, 2, False), (80, 1, 1, 2, False),
+             (1, 64, 48, 8, False), (3, 20, 33, 20, False)]
 
 
 @pytest.fixture
@@ -31,18 +37,27 @@ def _spd(B, n, dtype, seed=0):
     return K.to(dtype), torch.randn(B, n, generator=g, dtype=torch.float64).to(dtype)
 
 
+def _k1_tol(dtype):
+    return (1e-5, 2e-5) if dtype == torch.float32 else (1e-12, 1e-11)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,n", [(7, 13), (32, 24), (8, 64), (2, 35), (3, 1)])
+@pytest.mark.parametrize("B,n", K1_SHAPES)
 def test_k1_kernel_matches_plain(dev, B, n, dtype):
+    """quad, logdet, alpha and Kinv against the plain version; Kinv exactly
+    symmetric, as the kernel forms it."""
     from botorch_tpu_torch.ops.mvn_linalg import qd_cuda, qd_plain
 
     K, r = (t.to(dev) for t in _spd(B, n, dtype))
     got = qd_cuda(K, r)
     ref = qd_plain(K, r)
     torch.cuda.synchronize()
-    atol, rtol = (1e-5, 2e-5) if dtype == torch.float32 else (1e-12, 1e-11)
+    atol, rtol = _k1_tol(dtype)
+    assert len(got) == 4
     for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
         torch.testing.assert_close(a, b, atol=atol + rtol * float(b.abs().max()), rtol=0)
+    assert torch.equal(got[3], got[3].transpose(-1, -2))
 
 
 def test_k1_gradient_and_nan(dev):
@@ -64,11 +79,52 @@ def test_k1_gradient_and_nan(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_non_pd_matrix_gives_nan_beside_good_ones(dev, dtype):
+    """A matrix that does not factor gives NaN; its neighbours in the batch
+    (other thread groups, other blocks) stay right."""
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda, qd_plain
+
+    K, r = (t.to(dev) for t in _spd(3, 35, dtype, seed=2))
+    K[1, 5, 5] = -1.0
+    got = qd_cuda(K, r)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0][1]) and torch.isnan(got[1][1])
+    ref = qd_plain(K[[0, 2]], r[[0, 2]])
+    atol, rtol = _k1_tol(dtype)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a[[0, 2]], b, atol=atol + rtol * float(b.abs().max()), rtol=0)
+
+
+def test_k1_op_launches_no_gemm_for_kinv(dev):
+    """The differentiable op's forward is K1 alone (it writes Kinv)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from botorch_tpu_torch.ops.mvn_linalg import mvn_quad_logdet
+
+    K, r = (t.to(dev) for t in _spd(2, 35, torch.float32, seed=3))
+    mvn_quad_logdet(K, r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mvn_quad_logdet(K, r)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("mvn_qd_kernel" in k for k in names), names
+
+
+def _k2_grad_tol(dtype, kind, coincident):
+    if dtype == torch.float32:
+        return (1e-6, 2e-3) if (kind == "matern12" and coincident) else (1e-6, 1e-5)
+    return (1e-14, 1e-7) if (kind == "matern12" and coincident) else (1e-14, 1e-11)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("B,n,m,d,coincident", [(2, 35, 35, 2, True), (1, 300, 257, 7, False),
-                                                (6, 35, 1, 2, False), (1, 64, 48, 8, False),
-                                                (3, 20, 33, 20, False)])
+@pytest.mark.parametrize("B,n,m,d,coincident", K2_SHAPES)
 def test_k2_kernel_matches_plain(dev, kind, B, n, m, d, coincident, dtype):
+    """Values against the plain version in float64 (reasons at
+    `chip_smoke.K2_ATOL`); the op's gradients (x, z, lengthscale) against
+    autograd of the plain version, each within atol + rtol * max |ref|
+    (reasons at `chip_smoke.K2_GRAD_TOL`)."""
     from botorch_tpu_torch.ops.kernel_matrix import (
         kernel_matrix, kernel_matrix_cuda, kernel_matrix_plain)
 
@@ -77,14 +133,21 @@ def test_k2_kernel_matches_plain(dev, kind, B, n, m, d, coincident, dtype):
     z = x if coincident else torch.rand(B, m, d, generator=g, dtype=torch.float64).to(dtype).to(dev)
     ls = (0.1 + torch.rand(B, d, generator=g, dtype=torch.float64)).to(dtype).to(dev)
     out = kernel_matrix_cuda(x, z, ls, kind)
-    ref = kernel_matrix_plain(x, z, ls, kind)
+    # the plain version in float64 on the same inputs (reasons at `chip_smoke.K2_ATOL`)
+    ref = kernel_matrix_plain(x.double(), z.double(), ls.double(), kind)
     torch.cuda.synchronize()
     small = 1e-5 if dtype == torch.float32 else 1e-12
     atol = {"matern12": 2e-3 if dtype == torch.float32 else 1e-7}.get(kind, small)
-    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.double(), ref, atol=atol, rtol=0)
+    w = torch.randn(ref.shape, generator=g, dtype=torch.float64).to(dtype).to(dev)
     inputs = [t.clone().requires_grad_(True) for t in (x, z, ls)]
-    grads = torch.autograd.grad(kernel_matrix(*inputs, kind).sum(), inputs)
-    assert all(torch.isfinite(gr).all() for gr in grads)
+    grads = torch.autograd.grad(kernel_matrix(*inputs, kind), inputs, w)
+    inputs_p = [t.clone().requires_grad_(True) for t in (x, z, ls)]
+    grads_p = torch.autograd.grad(kernel_matrix_plain(*inputs_p, kind), inputs_p, w)
+    gatol, grtol = _k2_grad_tol(dtype, kind, coincident)
+    for a, b in zip(grads, grads_p):
+        torch.testing.assert_close(a, b, atol=gatol + grtol * float(b.abs().max()), rtol=0)
 
 
 def test_entry_points_run_on_the_card_through_both_kernels(dev):

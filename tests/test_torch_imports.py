@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no file of `botorch_tpu_torch/` or
-`chip_smoke.py` imports JAX, flax or the JAX package, every module imports
+"""The PyTorch port stands alone: no file of `botorch_tpu_torch/`,
+`chip_smoke.py` or `tools/` imports JAX, flax or the JAX package, every module imports
 on a CPU-only machine, and the entry points default to CUDA without ever
 falling back to the CPU."""
 
@@ -38,6 +38,14 @@ def _imported_roots(path: pathlib.Path):
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "tools").glob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_tools_import_no_jax(path):
+    """The on-card measurement scripts stand on the port alone too."""
     bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
     assert not bad, f"{path} imports {bad}"
 
