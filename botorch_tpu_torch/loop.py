@@ -3,7 +3,8 @@ r"""Closed-loop Bayesian optimization (counterpart of `botorch_tpu/loop.py`).
 The history lives in fixed-size padded buffers with a validity mask, as
 in the reference, so every iteration works on the same shapes. Each
 iteration fits the GP (warm-started from the previous iteration's MAP
-estimate), builds the analytic acquisition, maximizes it, and appends the
+estimate), builds the acquisition (an analytic one, or qLogNEI over the
+padded history with fresh qMC base samples), maximizes it, and appends the
 evaluated candidates. PyTorch runs eagerly: the loop is a Python loop, and
 all tensors stay on the chosen device (CUDA unless given).
 
@@ -11,8 +12,6 @@ Entry points:
   * `bo_step`: one fit + acquire + optimize step for an external objective;
     the caller evaluates the candidate and calls `append_observations`.
   * `run_bo_loop`: the whole loop for an objective on tensors.
-Only the analytic acquisitions are ported; `acqf_name="qLogNEI"` raises
-`NotImplementedError` until the Monte-Carlo slice.
 """
 
 from __future__ import annotations
@@ -23,6 +22,10 @@ from typing import Callable, Optional
 import torch
 
 from botorch_tpu_torch.acquisition.analytic import ANALYTIC
+from botorch_tpu_torch.acquisition.monte_carlo import (
+    draw_fresh_base_samples,
+    qLogNoisyExpectedImprovement,
+)
 from botorch_tpu_torch.fit import fit_gp
 from botorch_tpu_torch.models.gp import GPParams, make_gp
 from botorch_tpu_torch.optim.optimize import optimize_acqf
@@ -32,6 +35,8 @@ from botorch_tpu_torch.settings import make_generator, resolve_device, resolve_d
 Tensor = torch.Tensor
 
 _MASK32 = 0xFFFFFFFF
+# Sobol seed of the qLogNEI base samples (each step XORs a fresh shift in)
+_BASE_SAMPLES_SEED = 17
 
 
 @dataclass(frozen=True)
@@ -82,20 +87,24 @@ def _bo_step(
     fit_maxiter: int = 60,
     acq_maxiter: int = 60,
     kernel: str = "rbf",
+    mc_samples: int = 128,
     params0: Optional[GPParams] = None,
     fit_x0: Optional[Tensor] = None,
     initial_conditions: Optional[Tensor] = None,
+    base_samples: Optional[Tensor] = None,
 ):
     """One BO iteration on the padded state: MAP-fit the GP on the masked
     history, build the acquisition, maximize it in the unit cube.
 
     Returns `(candidates (q, d), acq_value, fitted GPParams)`. `params0`
-    warm-starts restart 0 of the fit; `fit_x0` and `initial_conditions`
-    replace the fit's restart starts and the acquisition's initial
-    conditions (drawn from `generator` otherwise)."""
-    if acqf_name not in ANALYTIC:
+    warm-starts restart 0 of the fit; `fit_x0`, `initial_conditions` and
+    `base_samples` (qLogNEI's `(mc_samples, capacity + q, 1)`) replace the
+    fit's restart starts, the acquisition's initial conditions and its
+    base samples (drawn from `generator` otherwise)."""
+    if acqf_name not in ANALYTIC and acqf_name != "qLogNEI":
         raise NotImplementedError(
-            f"acquisition {acqf_name!r} is not ported yet; have {sorted(ANALYTIC)}"
+            f"acquisition {acqf_name!r} is not ported yet; have "
+            f"{sorted(ANALYTIC) + ['qLogNEI']}"
         )
     device = state.X.device
     capacity, d = state.X.shape
@@ -110,11 +119,22 @@ def _bo_step(
         model, generator, num_restarts=fit_restarts, maxiter=fit_maxiter,
         x0=fit_x0, device=device,
     )
-    acqf_cls = ANALYTIC[acqf_name]
-    kwargs = {}
-    if "best_f" in acqf_cls.__dataclass_fields__:
-        kwargs["best_f"] = torch.max(torch.where(mask, state.Y, -torch.inf))
-    acqf = acqf_cls(model=model, cache=model.train_chol(), **kwargs)
+    if acqf_name == "qLogNEI":
+        if base_samples is None:
+            base_samples = draw_fresh_base_samples(
+                capacity + q, 1, mc_samples, generator, seed=_BASE_SAMPLES_SEED
+            )
+        acqf = qLogNoisyExpectedImprovement(
+            model=model, cache=model.train_chol(),
+            base_samples=torch.as_tensor(base_samples, device=device),
+            X_baseline=state.X, baseline_mask=mask,
+        )
+    else:
+        acqf_cls = ANALYTIC[acqf_name]
+        kwargs = {}
+        if "best_f" in acqf_cls.__dataclass_fields__:
+            kwargs["best_f"] = torch.max(torch.where(mask, state.Y, -torch.inf))
+        acqf = acqf_cls(model=model, cache=model.train_chol(), **kwargs)
 
     unit_bounds = torch.stack(
         [torch.zeros(d, dtype=state.X.dtype, device=device),
@@ -144,6 +164,7 @@ def bo_step(
     fit_maxiter: int = 60,
     acq_maxiter: int = 60,
     kernel: str = "rbf",
+    mc_samples: int = 128,
     device=None,
 ) -> tuple[Tensor, Tensor]:
     """Public single step (see `_bo_step`) on `device` (CUDA unless given);
@@ -157,7 +178,7 @@ def bo_step(
         state, sobol, generator, acqf_name=acqf_name, q=q,
         num_restarts=num_restarts, raw_samples=raw_samples,
         fit_restarts=fit_restarts, fit_maxiter=fit_maxiter,
-        acq_maxiter=acq_maxiter, kernel=kernel,
+        acq_maxiter=acq_maxiter, kernel=kernel, mc_samples=mc_samples,
     )
     return cand, val
 

@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from botorch_tpu_torch.settings import resolve_device
+
 Tensor = torch.Tensor
 
 MAXDIM = 21201
@@ -136,3 +138,12 @@ def draw_sobol_samples(
     sv, shift = sobol_table(q * d, scramble=True, seed=seed, device=bounds.device)
     pts = draw_sobol(sv, shift, n, dtype=bounds.dtype).reshape(n, q, d)
     return bounds[0] + (bounds[1] - bounds[0]) * pts
+
+
+def draw_sobol_normal_samples(
+    d: int, n: int, seed: Optional[int] = None, dtype=torch.float32, device=None
+) -> Tensor:
+    """`n x d` standard-normal qMC samples on `device` (CUDA unless given):
+    scrambled Sobol points through the inverse normal CDF."""
+    sv, shift = sobol_table(d, scramble=True, seed=seed, device=resolve_device(device))
+    return torch.special.ndtri(draw_sobol(sv, shift, n, dtype=dtype))

@@ -1,4 +1,5 @@
-"""On-card smoke test of botorch_tpu_torch: build, kernel checks, config-1 loop.
+"""On-card smoke test of botorch_tpu_torch: build, kernel checks, the
+config-1 (LogEI) and config-2 (qLogNEI) loops.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -14,17 +15,28 @@ Phases, each printing one JSON line:
      must launch K1 alone (no GEMM for Kinv);
   3. k2: kernel K2 (`kernel_matrix`) against its plain version (values:
      the plain version in float64 on the same inputs) for the four
-     kernels at the loop's launch shapes and larger ones, values and
-     gradients each within a stated tolerance, with times and the floor,
+     kernels at both loops' launch shapes and larger ones, values and
+     gradients each within a stated tolerance, with times and the floor;
+     at the config-2 shapes (rbf) also both of K2's paths timed on the same
+     inputs (`narrow_ms`, `tiled_ms`; `path` is the one `k2_plan` picks);
      and the device launches of the op's forward and backward;
-  4. bo_step: one BO step on the card against the same step on the CPU
-     (plain versions), with the same restart starts and initial conditions;
+  4. bo_step: one config-1 BO step on the card against the same step on
+     the CPU (plain versions), with the same restart starts and initial
+     conditions;
   5. bo_loop: the config-1 BO loop (SingleTaskGP + LogEI on Branin, d=2,
      n_init=10, 25 iterations, num_restarts=6, raw_samples=64,
      fit_restarts=2, fit_maxiter=15, acq_maxiter=15, seed 0) through
      `run_bo_loop`, with each kernel's launch count over the run, and one
      step at the last history size: wall and device time, idle share, the
-     kernels' launches and K2's launches by shape and path.
+     kernels' launches and K2's launches by shape and path;
+  6. mc_step: one config-2 qLogNEI step on the card against the same step
+     on the CPU, from the same fit starts, initial conditions and base
+     samples, with the jitter rung of the joint posterior on each side;
+  7. qnei_loop: config 2 (qLogNEI on Hartmann-6, q=4, n_init=16, 15
+     iterations, 128 qMC samples, config 1's budgets, seed 0) through
+     `run_bo_loop`, with the kernels' launches over the run (K2's by shape
+     and path), the final regret beside the initial design's, and one
+     profiled step at the last history size.
 The k1 and k2 phases also carry the card's SM clock and power, sampled
 by `nvidia-smi` while they run, and `floor_ms`: the device time of `add_`
 on a one-element tensor, the shortest kernel the card runs. Then the
@@ -47,6 +59,14 @@ REGRET_BAR = 0.5
 LOOP_CFG = dict(
     num_restarts=6, raw_samples=64, fit_restarts=2, fit_maxiter=15, acq_maxiter=15
 )
+# config 2 (`bench.py:104-125`): qLogNEI on Hartmann-6, q = 4, 16 initial
+# points and 15 iterations, so the padded capacity is 16 + 15 * 4 = 76
+HARTMANN6_OPT = 3.32237
+CONFIG2 = dict(d=6, n_init=16, iterations=15, q=4)
+QNEI_CFG = dict(LOOP_CFG, acqf_name="qLogNEI", mc_samples=128)
+# card against CPU in one qLogNEI step: max |candidate difference| and
+# |value difference| / max(1, |value|)
+MC_STEP_TOL = 2e-2
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 /
 # float64 operations per second outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -64,11 +84,14 @@ K1_OUTPUTS = ("quad", "logdet", "alpha", "kinv")
 # differences, a few rounding steps of d2 itself, well inside 1e-5.
 # matern12 = exp(-r) with r = sqrt(d2) has unit slope at r = 0: at
 # coincident points K2 gives d2 = 0 exactly while the float64 expansion
-# leaves ~1e-14, i.e. ~1e-7 in the output (the float64 bound).
+# leaves ~1e-14, i.e. ~1e-7 in the output (the float64 bound). At d = 6
+# (config 2) |xs|^2 reaches ~600 and the expansion leaves up to ~1e-13 at
+# coincident points, ~4e-7 in the output: there the float64 bound is 1e-6.
 K2_ATOL = {
     "float32": {"rbf": 1e-5, "matern52": 1e-5, "matern32": 1e-5, "matern12": 2e-3},
     "float64": {"rbf": 1e-12, "matern52": 1e-12, "matern32": 1e-12, "matern12": 1e-7},
 }
+K2_ATOL_F64_MATERN12_COINCIDENT_WIDE = 1e-6  # d > 2
 # K2's gradients (x, z, lengthscale) against autograd of the plain version,
 # as (atol, rtol) of max |grad - ref| <= atol + rtol * max |ref|. The op's
 # backward is itself autograd of the plain version, so today this holds
@@ -345,7 +368,55 @@ def phase_k1(gen):
             "op_kernels": op, "cases": cases}
 
 
-def k2_case(B, n, m, d, kind, dtype, gen, floor, coincident=False):
+def k2_path_params(path: str, B: int, n: int, m: int, d: int, dtype, num_sms: int) -> tuple:
+    """The two path parameters of K2's C entry point for `path`, as
+    `k2_plan` sets them when it picks that path (the narrow launcher takes
+    any n * m)."""
+    from botorch_tpu_torch.ops.kernel_matrix import TILE_COLS, TILE_ROWS_PER_THREAD
+
+    if path == "narrow":
+        return (2 if d <= 2 else 8 if d <= 8 else 32, 128)
+    for rm in TILE_ROWS_PER_THREAD:
+        if math.ceil(m / TILE_COLS) * math.ceil(n / (16 * rm)) * B >= num_sms:
+            break
+    return (rm, int(m % (16 // dtype.itemsize) == 0))
+
+
+def k2_paths_ms(x, z, ls, kind, ref) -> dict:
+    """Both K2 paths launched through their C entry points on the same
+    inputs (`x (n, d)` shared or `(B, n, d)`, `z (B, m, d)`, `ls (B, d)`,
+    all contiguous): device ms of each and its max |error| against `ref`."""
+    import torch
+
+    from botorch_tpu_torch.ops import cuda_build
+    from botorch_tpu_torch.ops.kernel_matrix import _KIND, _functions
+
+    B, m, d = z.shape
+    n = x.shape[-2]
+    sx = 0 if x.ndim == 2 else n * d
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {}
+    for path in ("narrow", "tiled"):
+        out = torch.empty((B, n, m), dtype=x.dtype, device=x.device)
+        args = (x.data_ptr(), z.data_ptr(), ls.data_ptr(), out.data_ptr(), B, n, m, d,
+                sx, m * d, d, _KIND[kind], *k2_path_params(path, B, n, m, d, x.dtype, num_sms),
+                stream)
+
+        def launch(fn=_functions()[path, x.dtype], args=args):
+            cuda_build.check(fn(*args), f"kernel_matrix {path}")
+
+        launch()
+        row[f"{path}_max_abs_err"] = max_err(out, ref)
+        row[f"{path}_ms"], row[f"{path}_timing"] = device_ms(launch)
+    return row
+
+
+def k2_case(B, n, m, d, coincident, kind, dtype, gen, floor, both_paths=False):
+    """One K2 case. `coincident`: None (x (n, d) shared by the batch, z
+    (B, m, d)), "shared" (z = x, shared: a train covariance) or "batched"
+    (z = x, (B, n, d): the acquisition's joint covariance). `both_paths`
+    also times the narrow and the tiled kernel on the same inputs."""
     import torch
 
     from botorch_tpu_torch.ops.kernel_matrix import (
@@ -355,12 +426,14 @@ def k2_case(B, n, m, d, kind, dtype, gen, floor, coincident=False):
     name = str(dtype).split(".")[-1]
     kw = dict(generator=gen, dtype=torch.float64)
     # the main path shares the train inputs and scales them per restart
-    x = torch.rand(n, d, **kw).to(dtype).cuda()
+    x = torch.rand(*((B,) if coincident == "batched" else ()), n, d, **kw).to(dtype).cuda()
     z = x if coincident else torch.rand(B, m, d, **kw).to(dtype).cuda()
     ls = (0.1 + torch.rand(B, d, **kw)).to(dtype).cuda()
     out = kernel_matrix_cuda(x, z, ls, kind)
     ref = kernel_matrix_plain(x.double(), z.double(), ls.double(), kind)
     atol = K2_ATOL[name][kind]
+    if (name, kind) == ("float64", "matern12") and coincident and d > 2:
+        atol = K2_ATOL_F64_MATERN12_COINCIDENT_WIDE
     err = max_err(out, ref)
     plain_err = max_err(kernel_matrix_plain(x, z, ls, kind), ref)
     ok = within(err, ref, atol) and out.shape == ref.shape and out.dtype == dtype
@@ -379,48 +452,69 @@ def k2_case(B, n, m, d, kind, dtype, gen, floor, coincident=False):
     case = {
         "B": B, "n": n, "m": m, "d": d, "kind": kind, "dtype": name,
         "coincident": coincident, "path": plan["path"], "max_abs_err": err,
-        "plain_max_abs_err": plain_err, "grad_max_abs_err": gerr, "atol": atol, "grad_tol": gtol, "ok": bool(ok),
+        "plain_max_abs_err": plain_err, "grad_max_abs_err": gerr, "atol": atol, "grad_tol": gtol,
         **timings(lambda: kernel_matrix_cuda(x, z, ls, kind),
                   lambda: kernel_matrix_plain(x, z, ls, kind), None),
         "floor_ms": floor,
     }
+    if both_paths:
+        paths = k2_paths_ms(x, z.expand(B, m, d).contiguous(), ls, kind, ref)
+        case.update(paths)
+        ok &= all(within(paths[f"{p}_max_abs_err"], ref, atol) for p in ("narrow", "tiled"))
+    case["ok"] = bool(ok)
     case["vs_floor"] = case["ms"] / floor
     isz = x.element_size()
-    nbytes = isz * (x.numel() + z.numel() + ls.numel() + B * n * m)
+    nbytes = isz * (x.numel() + (0 if coincident else z.numel()) + ls.numel() + B * n * m)
     ops = B * (2 * n * m * d + 2 * (n + m) * d + 9 * n * m)
     case["bound_ms"], case["bound_by"] = bound_ms(nbytes, ops, name)
     return case
 
 
-# (B, n, m, d): the fit's train covariance and `train_chol`'s (x = z), a
-# large tiled shape, the acquisition's k(X, x) and k(x, x) for the 6
-# restarts and the 64 raw points (as a profiled step launches them), the
-# same at 80 points, and wider feature counts
-K2_SHAPES = ((2, 35, 35, 2), (1, 35, 35, 2), (1, 300, 257, 7), (6, 35, 1, 2), (6, 1, 1, 2),
-             (64, 35, 1, 2), (64, 1, 1, 2), (80, 35, 1, 2), (80, 1, 1, 2), (1, 64, 48, 8),
-             (1, 64, 48, 20))
+# (B, n, m, d, coincident): the config-1 loop's fit covariance and
+# `train_chol`'s (z = x), a large tiled shape, the acquisition's k(X, x)
+# and k(x, x) for the 6 restarts and the 64 raw points (as a profiled step
+# launches them), the same at 80 points, and wider feature counts; then
+# the config-2 qLogNEI loop's: the fit's and `train_chol`'s covariance of
+# 76 padded rows, and k(X_train, X_full), k(X_full, X_full) over 76
+# baseline + 4 candidate points for the 64 raw q-batches and the 6 restarts
+CONFIG2_K2 = ((2, 76, 76, 6, "shared"), (1, 76, 76, 6, "shared"), (64, 76, 80, 6, None),
+              (64, 80, 80, 6, "batched"), (6, 76, 80, 6, None), (6, 80, 80, 6, "batched"))
+K2_SHAPES = ((2, 35, 35, 2, "shared"), (1, 35, 35, 2, "shared"), (1, 300, 257, 7, None),
+             (6, 35, 1, 2, None), (6, 1, 1, 2, None), (64, 35, 1, 2, None), (64, 1, 1, 2, None),
+             (80, 35, 1, 2, None), (80, 1, 1, 2, None), (1, 64, 48, 8, None),
+             (1, 64, 48, 20, None)) + CONFIG2_K2
 
 
 def k2_op_launches() -> dict:
     """Device launches of the op's forward (K2 alone) and of its backward
-    (autograd of the plain version) at the fit's shape, rbf float32."""
+    (autograd of the plain version), rbf float32: at the config-1 fit's
+    (2, 35, 35, 2), gradients in x and the lengthscales, and at the config-2
+    ascent's k(X_train, X_full) (6, 76, 80, 6), gradients in the candidates."""
     import torch
 
     from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix
 
+    def count(x, z, ls, wrt):
+        def fwd():
+            return kernel_matrix(x, z, ls, "rbf")
+
+        g = torch.ones_like(fwd())
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), wrt, g)
+
+        fwd_bwd()  # warm-up: a profile can miss the first launches of a new call
+        forward = sum(c for c, _ in device_profile(fwd).values())
+        both = sum(c for c, _ in device_profile(fwd_bwd).values())
+        return {"forward": forward, "backward": both - forward}
+
     x = torch.rand(35, 2, device="cuda", requires_grad=True)
     ls = torch.full((2, 2), 0.5, device="cuda", requires_grad=True)
-    g = torch.ones(2, 35, 35, device="cuda")
-
-    def fwd():
-        return kernel_matrix(x, x, ls, "rbf")
-
-    def fwd_bwd():
-        torch.autograd.grad(fwd(), (x, ls), g)
-
-    forward = sum(c for c, _ in device_profile(fwd).values())
-    both = sum(c for c, _ in device_profile(fwd_bwd).values())
-    return {"forward": forward, "backward": both - forward}
+    x_train = torch.rand(76, 6, device="cuda")
+    x_full = torch.rand(6, 80, 6, device="cuda", requires_grad=True)
+    return {"fit_2x35x35x2": count(x, x, ls, (x, ls)),
+            "ascent_6x76x80x6": count(x_train, x_full, torch.full((6,), 0.5, device="cuda"),
+                                      (x_full,))}
 
 
 def phase_k2(gen):
@@ -431,9 +525,9 @@ def phase_k2(gen):
         floor = floor_ms()
         for dtype in (torch.float32, torch.float64):
             for kind in ("rbf", "matern52", "matern32", "matern12"):
-                for B, n, m, d in K2_SHAPES:
-                    coincident = (n, m) == (35, 35)
-                    cases.append(k2_case(B, n, m, d, kind, dtype, gen, floor, coincident))
+                for shape in K2_SHAPES:
+                    both = kind == "rbf" and shape in CONFIG2_K2
+                    cases.append(k2_case(*shape, kind, dtype, gen, floor, both_paths=both))
     return {"phase": "k2", "ok": all(c["ok"] for c in cases), "floor_ms": floor,
             "clocks": clocks.summary(), "op_launches": k2_op_launches(), "cases": cases}
 
@@ -514,24 +608,125 @@ def phase_bo_loop():
         "phase": "bo_loop", "ok": bool(ok), "wall_s": wall, "iterations": 25,
         "iters_per_s": 25 / wall, "regret": regret, "regret_bar": REGRET_BAR,
         "launches": launches, "shape_ok": shape_ok, "finite": finite, "in_box": in_box,
-        "last_step": step_breakdown(state),
+        "last_step": step_breakdown(state, 1, LOOP_CFG),
     }
 
 
-def step_breakdown(state) -> dict:
-    """Wall time of one BO step at the loop's last history size (34 points)
-    and where its device time goes (profiled in a second, identical call)."""
+def phase_mc_step():
+    """One qLogNEI step at the padded config-2 state after the initial
+    design (16 Hartmann-6 points in 76 rows), on the card and on the CPU
+    (plain versions), from the same fit starts, initial conditions and base
+    samples; with the jitter rung `psd_safe_cholesky` takes for the joint
+    posterior of the 76 baseline rows and the 4 candidates on each side."""
+    import torch
+
+    from botorch_tpu_torch.acquisition.monte_carlo import draw_fresh_base_samples
+    from botorch_tpu_torch.fit import _prepare_fit
+    from botorch_tpu_torch.loop import BOState, _bo_step, append_observations, init_state
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.ops.chol import jitter_rung
+    from botorch_tpu_torch.sampling.sobol import sobol_table
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.synthetic import Hartmann
+
+    d, q, n0 = CONFIG2["d"], CONFIG2["q"], CONFIG2["n_init"]
+    cap = n0 + CONFIG2["iterations"] * q
+    state, X0 = init_state(n0, d, cap, seed=0, device="cpu")
+    state = append_observations(state, X0, Hartmann(dim=d, negate=True)(X0))
+    mask = torch.arange(cap) < n0
+    model = make_gp(state.X, state.Y[:, None], mask=mask, device="cpu")
+    _, _, x0, _, _ = _prepare_fit(model, make_generator(1, "cpu"), QNEI_CFG["fit_restarts"])
+    ics = torch.rand(QNEI_CFG["num_restarts"], q, d, generator=make_generator(2, "cpu"))
+    base = draw_fresh_base_samples(cap + q, 1, QNEI_CFG["mc_samples"], make_generator(3, "cpu"),
+                                   seed=17)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = BOState(X=state.X.to(dev), Y=state.Y.to(dev), n=n0)
+        cand, val, params = _bo_step(
+            st, sobol_table(q * d, seed=0, device=dev), make_generator(0, dev), q=q,
+            fit_x0=x0, initial_conditions=ics, base_samples=base, **QNEI_CFG,
+        )
+        fitted = make_gp(st.X, st.Y[:, None], mask=mask.to(dev), device=dev).replace(params=params)
+        cov = fitted.posterior(torch.cat([st.X, cand])[None]).cov
+        out[dev] = {"candidate": cand.cpu(), "value": float(val),
+                    "rung": int(jitter_rung(cov, batch_dims=1)[0])}
+    cand_err = max_err(out["cuda"]["candidate"], out["cpu"]["candidate"])
+    val_err = abs(out["cuda"]["value"] - out["cpu"]["value"]) / max(1.0, abs(out["cpu"]["value"]))
+    c = out["cuda"]["candidate"]
+    # Both sides run the same float32 L-BFGS from the same starts; the
+    # kernels and the Cholesky factorizations round differently.
+    ok = (math.isfinite(cand_err) and cand_err <= MC_STEP_TOL and val_err <= MC_STEP_TOL
+          and bool(((c >= 0) & (c <= 1)).all()))
+    return {"phase": "mc_step", "ok": bool(ok), "candidate_max_abs_err": cand_err,
+            "value_rel_err": val_err, "tol": MC_STEP_TOL,
+            "value": {k: v["value"] for k, v in out.items()},
+            "rung": {k: v["rung"] for k, v in out.items()}}
+
+
+def phase_qnei_loop():
+    """Config 2 through `run_bo_loop` at `bench.py`'s budgets, seed 0, with
+    both kernels' launch counts over the run, K2's by shape and path (the
+    counting wrapper adds one Python call per K2 launch to the timed run),
+    and one profiled step at the last history size."""
+    import torch
+
+    from botorch_tpu_torch.loop import best_observed, run_bo_loop
+    from botorch_tpu_torch.ops import kernel_matrix as km
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.test_functions.synthetic import Hartmann
+
+    prob = Hartmann(dim=CONFIG2["d"], negate=True)
+    cap = CONFIG2["n_init"] + CONFIG2["iterations"] * CONFIG2["q"]
+    # warm-up at the same shapes, then the counted, timed run
+    run_bo_loop(prob, **dict(CONFIG2, iterations=1), capacity=cap, seed=1, **QNEI_CFG)
+    torch.cuda.synchronize()
+    qd_cuda.launches = 0
+    km.kernel_matrix_cuda.launches = 0
+    run = {}
+    t0 = time.perf_counter()
+    k2_shapes = k2_shapes_of(lambda: run.update(state=run_bo_loop(prob, **CONFIG2, seed=0,
+                                                                  **QNEI_CFG)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state = run["state"]
+    launches = {"mvn_quad_logdet": qd_cuda.launches, "kernel_matrix": km.kernel_matrix_cuda.launches}
+    by_path = {}
+    for row in k2_shapes:
+        by_path[row["path"]] = by_path.get(row["path"], 0) + row["launches"]
+    n0 = CONFIG2["n_init"]
+    regret = HARTMANN6_OPT - float(best_observed(state))
+    initial_regret = HARTMANN6_OPT - float(state.Y[:n0].max())
+    X = state.X[: state.n]
+    shape_ok = state.X.shape == (cap, CONFIG2["d"]) and state.n == cap and state.X.is_cuda
+    finite = bool(torch.isfinite(state.Y[: state.n]).all() and torch.isfinite(X).all())
+    in_box = bool(((X >= 0) & (X <= 1)).all())
+    ok = (shape_ok and finite and in_box and regret < initial_regret
+          and launches["kernel_matrix"] > 0)
+    iters = CONFIG2["iterations"]
+    return {
+        "phase": "qnei_loop", "ok": bool(ok), "wall_s": wall, "iterations": iters,
+        "iters_per_s": iters / wall, "regret": regret, "initial_design_regret": initial_regret,
+        "launches": launches, "kernel_matrix_by_path": by_path,
+        "kernel_matrix_shapes": k2_shapes, "shape_ok": shape_ok, "finite": finite,
+        "in_box": in_box, "last_step": step_breakdown(state, CONFIG2["q"], QNEI_CFG),
+    }
+
+
+def step_breakdown(state, q: int, cfg: dict) -> dict:
+    """Wall time of one BO step at the loop's last history size (the full
+    state less one q-batch) and where its device time goes (profiled in a
+    second, identical call)."""
     import torch
 
     from botorch_tpu_torch.loop import BOState, _bo_step
     from botorch_tpu_torch.sampling.sobol import sobol_table
     from botorch_tpu_torch.settings import make_generator
 
-    st = BOState(X=state.X, Y=state.Y, n=state.n - 1)
-    sob = sobol_table(2, seed=0, device="cuda")
+    st = BOState(X=state.X, Y=state.Y, n=state.n - q)
+    sob = sobol_table(q * state.X.shape[-1], seed=0, device="cuda")
 
     def step():
-        return _bo_step(st, sob, make_generator(5, "cuda"), **LOOP_CFG)
+        return _bo_step(st, sob, make_generator(5, "cuda"), q=q, **cfg)
 
     step()
     torch.cuda.synchronize()
@@ -559,7 +754,9 @@ def step_breakdown(state) -> dict:
 
 def k2_shapes_of(step) -> list:
     """K2 launches of one call of `step` by (B, n, m, d) and path, counted by
-    wrapping the wrapper that `_KernelMatrix` calls for this one call."""
+    wrapping the wrapper that `_KernelMatrix` calls for this one call. The
+    wrapper's own count, which its launches add to the name it is called
+    by, is carried back to it."""
     from collections import Counter
 
     import torch
@@ -583,35 +780,38 @@ def k2_shapes_of(step) -> list:
         step()
     finally:
         km.kernel_matrix_cuda = inner
+        inner.launches += counting.launches
     return [{"B": B, "n": n, "m": m, "d": d, "path": path, "launches": c}
             for (B, n, m, d, path), c in seen.most_common()]
 
 
-def kernels_line(k1, k2, loop):
-    """One row per kernel at its main-path shape: K1 at the fit's (B=2,
-    n=35) float32; K2 at the fit's (B=2, 35 x 35, d=2) and at the
-    acquisition's (B=6, 35 x 1, d=2), where it launches most, rbf float32.
-    Every number but `bound_ms` is measured in this run."""
+def kernels_line(k1, k2, loop, qnei):
+    """One row per kernel at its main-path shape, its launches from the run
+    of the loop that launches it there (`launches_from`): K1 at the
+    config-1 fit's (B=2, n=35) float32; K2 at the config-1 fit's (B=2,
+    35 x 35, d=2) and acquisition's (B=6, 35 x 1, d=2), and at the config-2
+    ascent's k(X_train, X_full) (B=6, 76 x 80, d=6), rbf float32. Every
+    number but `bound_ms` is measured in this run."""
     c1 = next(c for c in k1["cases"] if (c["B"], c["n"], c["dtype"]) == (2, 35, "float32"))
 
     def k2_at(shape):
         return next(c for c in k2["cases"] if (c["B"], c["n"], c["m"], c["d"]) == shape
                     and (c["kind"], c["dtype"]) == ("rbf", "float32"))
 
-    rows = [
-        ("mvn_quad_logdet", "botorch_tpu_torch/csrc/mvn_quad_logdet.cu",
-         "botorch_tpu/ops/pallas_linalg.py:134", (2, 35), c1, max(c1["max_abs_err"].values())),
-    ]
-    for shape in ((2, 35, 35, 2), (6, 35, 1, 2)):
+    rows = [("mvn_quad_logdet", "botorch_tpu_torch/csrc/mvn_quad_logdet.cu",
+             "botorch_tpu/ops/pallas_linalg.py:134", (2, 35), c1,
+             max(c1["max_abs_err"].values()), loop)]
+    for shape, run in (((2, 35, 35, 2), loop), ((6, 35, 1, 2), loop), ((6, 76, 80, 6), qnei)):
         c2 = k2_at(shape)
         rows.append(("kernel_matrix", "botorch_tpu_torch/csrc/kernel_matrix.cu",
-                     "botorch_tpu/ops/pallas_kernels.py:84", shape, c2, c2["max_abs_err"]))
+                     "botorch_tpu/ops/pallas_kernels.py:84", shape, c2, c2["max_abs_err"], run))
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "shape": list(shape),
-         "dtype": "float32", "launches": loop["launches"][name], "max_abs_err": err,
+         "dtype": "float32", "path": c.get("path"), "launches": run["launches"][name],
+         "launches_from": run["phase"], "max_abs_err": err,
          "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": c["library_ms"], "floor_ms": c["floor_ms"]}
-        for name, src, rep, shape, c, err in rows
+        for name, src, rep, shape, c, err, run in rows
     ]}
 
 
@@ -635,7 +835,7 @@ def main() -> int:
     phases = (
         ("build", phase_build), ("k1", lambda: phase_k1(gen)),
         ("k2", lambda: phase_k2(gen)), ("bo_step", phase_bo_step),
-        ("bo_loop", phase_bo_loop),
+        ("bo_loop", phase_bo_loop), ("mc_step", phase_mc_step), ("qnei_loop", phase_qnei_loop),
     )
     for name, fn in phases:
         try:
@@ -653,7 +853,7 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
-    emit(kernels_line(results["k1"], results["k2"], results["bo_loop"]))
+    emit(kernels_line(results["k1"], results["k2"], results["bo_loop"], results["qnei_loop"]))
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -80,7 +80,8 @@ def test_sources_exist():
         "ops/kernels.py", "ops/kernel_matrix.py", "ops/chol.py",
         "ops/mvn_linalg.py", "ops/lbfgs.py", "models/priors.py",
         "models/gp.py", "posteriors/gaussian.py", "acquisition/analytic.py",
-        "optim/optimize.py",
+        "optim/optimize.py", "sampling/qmc.py", "sampling/samplers.py",
+        "acquisition/monte_carlo.py",
     ):
         assert mod in names, mod
     csrc = {p.name for p in (ROOT / "botorch_tpu_torch" / "csrc").glob("*.cu")}
@@ -126,6 +127,29 @@ def test_entry_points_default_to_cuda():
         optimize_acqf(lambda X: X.sum((-1, -2)), [[0.0, 0.0], [1.0, 1.0]], q=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_bo_loop(lambda X: X.sum(-1), d=2, n_init=3, iterations=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_bo_loop(lambda X: X.sum(-1), d=2, n_init=3, iterations=1, acqf_name="qLogNEI")
+
+
+def test_mc_slice_defaults_to_cuda():
+    """The qMC and sampler entry points that make tensors from nothing run
+    on CUDA unless given a device; the rest follow their inputs' device."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a card")
+    from botorch_tpu_torch.loop import bo_step, init_state
+    from botorch_tpu_torch.sampling.qmc import NormalQMCEngine
+    from botorch_tpu_torch.sampling.samplers import IIDNormalSampler, SobolQMCNormalSampler
+    from botorch_tpu_torch.sampling.sobol import draw_sobol_normal_samples, sobol_table
+
+    for make in (lambda: draw_sobol_normal_samples(3, 4), lambda: NormalQMCEngine(3),
+                 lambda: SobolQMCNormalSampler().base_samples((2, 1)),
+                 lambda: IIDNormalSampler().base_samples((2, 1))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    state, _ = init_state(3, 2, 5, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bo_step(state, sobol_table(2), acqf_name="qLogNEI")
+    assert draw_sobol_normal_samples(3, 4, device="cpu").device.type == "cpu"
 
 
 def test_wrappers_refuse_other_devices():

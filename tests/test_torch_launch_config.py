@@ -5,8 +5,12 @@ pure functions of the shapes and the dtype, so they are held here to the
 shapes the config-1 loop launches (K2: the fit's (2, 35, 35, 2),
 `train_chol`'s (1, 35, 35, 2), the acquisition's (6, 35, 1, 2) and
 (6, 1, 1, 2) and the 64 raw points' (64, 35, 1, 2) and (64, 1, 1, 2); K1:
-the fit's (2, 35) and the edges of its thread blocks) and to the limits of
-an H100 SXM (132 SMs, 232,448 bytes of shared memory a block can opt into).
+the fit's (2, 35) and the edges of its thread blocks), to the shapes the
+config-2 qLogNEI loop launches (K2 only: the fit's (2, 76, 76, 6),
+`train_chol`'s (1, 76, 76, 6), and k(X_train, X_full), k(X_full, X_full)
+over 76 baseline + 4 candidate points for the 64 raw q-batches and the 6
+restarts) and to the limits of an H100 SXM (132 SMs, 232,448 bytes of
+shared memory a block can opt into).
 """
 
 import math
@@ -66,6 +70,25 @@ def test_k2_tiled_path_covers_the_sms(dtype):
 def test_k2_tiled_vector_stores_need_aligned_rows(dtype, m, vec):
     plan = k2_plan(4, 512, m, 3, dtype, H100_SMS)
     assert plan["path"] == "tiled" and plan["vector_stores"] is vec
+
+
+# (B, n, m, d, rows_per_thread): every launch of the config-2 loop has
+# 5,776-6,400 outputs per problem, above the narrow path's 4096; the 64
+# raw q-batches fill the SMs with 4 rows a thread, the rest need 1
+CONFIG2_K2 = [(2, 76, 76, 6, 1), (1, 76, 76, 6, 1), (64, 76, 80, 6, 4), (64, 80, 80, 6, 4),
+              (6, 76, 80, 6, 1), (6, 80, 80, 6, 1)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,n,m,d,rm", CONFIG2_K2)
+def test_k2_tiled_path_at_the_config2_shapes(B, n, m, d, rm, dtype):
+    plan = k2_plan(B, n, m, d, dtype, H100_SMS)
+    assert plan["path"] == "tiled" and plan["threads"] == 128
+    assert plan["rows_per_thread"] == rm
+    assert plan["grid"] == (math.ceil(m / 32), math.ceil(n / (16 * rm)), B)
+    # the first rm in (4, 2, 1) whose grid covers the SMs, else 1
+    assert math.prod(plan["grid"]) >= H100_SMS or rm == 1
+    assert plan["vector_stores"]  # 76 and 80 columns: 16-byte aligned rows in both dtypes
 
 
 def test_k2_tiled_takes_more_rows_per_thread_when_the_grid_allows():

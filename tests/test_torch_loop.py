@@ -8,7 +8,15 @@
   within rtol 2e-3, candidate within 2e-2. Both run float32 L-BFGS with
   15-step budgets, which stop short of convergence, so the last digits
   of the rounding decide where a lane stops along a flat direction.
-* The 8-seed Branin regret at `bench.py`'s budgets (marked slow).
+* One qLogNEI `_bo_step` (q = 2, 32 qMC samples) on a 12-point Hartmann-3
+  history in a 16-row buffer, with the reference's fit starts, base
+  samples and initial conditions fed in: fitted raw hyperparameters,
+  candidates and the acquisition value within 5e-3. The 15-step float32
+  ascents stop short of convergence, but this surface is steep enough
+  that the two packages' rounding moves a lane by ~1e-4 only.
+* A 2-iteration qLogNEI loop on the CPU.
+* The 8-seed Branin regret at `bench.py`'s budgets, and the 8-seed
+  Hartmann-6 qLogNEI regret of config 2 (both marked slow).
 """
 
 import jax
@@ -18,6 +26,7 @@ import pytest
 import torch
 
 from botorch_tpu import loop as jloop
+from botorch_tpu.acquisition import monte_carlo as jmc
 from botorch_tpu.acquisition.analytic import LogExpectedImprovement as JLogEI
 from botorch_tpu.fit import _prepare_fit as j_prepare_fit
 from botorch_tpu.fit import fit_gp as j_fit_gp
@@ -25,6 +34,7 @@ from botorch_tpu.models.gp import make_gp as j_make_gp
 from botorch_tpu.optim.optimize import gen_batch_initial_conditions as j_gen_ics
 from botorch_tpu.sampling.sobol import sobol_table as j_sobol_table
 from botorch_tpu.test_functions.synthetic import Branin as JBranin
+from botorch_tpu.test_functions.synthetic import Hartmann as JHartmann
 from botorch_tpu.utils.transforms import unnormalize as j_unnormalize
 from botorch_tpu_torch import convert
 from botorch_tpu_torch import loop as tloop
@@ -35,6 +45,7 @@ from botorch_tpu_torch.utils.transforms import unnormalize
 
 CFG = dict(num_restarts=6, raw_samples=64, fit_restarts=2, fit_maxiter=15, acq_maxiter=15)
 BRANIN_OPT = 0.397887
+HARTMANN6_OPT = 3.32237
 
 
 def _branin_t():
@@ -121,8 +132,13 @@ def test_public_bo_step_is_the_step(history):
     cand, val = tloop.bo_step(st_t, sob, make_generator(4, "cpu"), device="cpu", **small)
     cand2, val2, _ = tloop._bo_step(st_t, sob, make_generator(4, "cpu"), **small)
     assert torch.equal(cand, cand2) and torch.equal(val, val2)
+    cand, val = tloop.bo_step(st_t, sob, make_generator(4, "cpu"), acqf_name="qLogNEI",
+                              mc_samples=16, device="cpu", **small)
+    cand2, val2, _ = tloop._bo_step(st_t, sob, make_generator(4, "cpu"), acqf_name="qLogNEI",
+                                    mc_samples=16, **small)
+    assert torch.equal(cand, cand2) and torch.equal(val, val2)
     with pytest.raises(NotImplementedError):
-        tloop.bo_step(st_t, sob, acqf_name="qLogNEI", device="cpu")
+        tloop.bo_step(st_t, sob, acqf_name="qKG", device="cpu")
 
 
 @pytest.mark.parametrize("acqf_name", ["EI", "UCB"])
@@ -133,6 +149,81 @@ def test_run_bo_loop_small(acqf_name):
     assert st.n == 7 and st.X.shape == (7, 2) and st.X.device.type == "cpu"
     assert torch.isfinite(st.Y).all() and torch.all((st.X >= 0) & (st.X <= 1))
     assert float(tloop.best_observed(st)) == pytest.approx(float(st.Y.max()))
+
+
+MC_CFG = dict(num_restarts=4, raw_samples=32, fit_restarts=2, fit_maxiter=15, acq_maxiter=15)
+
+
+def test_qlognei_bo_step_against_reference():
+    cap, d, q, nmc = 16, 3, 2, 32
+    st_j, X0 = jloop.init_state(12, d, cap, seed=3)
+    st_j = jloop.append_observations(st_j, X0, JHartmann(dim=d, negate=True)(X0))
+    sob_j = j_sobol_table(q * d, scramble=True, seed=3)
+
+    @jax.jit
+    def reference(state, key):
+        """The reference's step, and the random draws inside it re-derived
+        from its key: the fit's restart starts, the base samples and the
+        initial conditions."""
+        cand, val, params = jloop._bo_step(state, key, sob_j, acqf_name="qLogNEI", q=q,
+                                           mc_samples=nmc, **MC_CFG)
+        k_fit, k_acq, k_base = jax.random.split(key, 3)
+        mask = jnp.arange(cap) < state.n
+        model = j_make_gp(state.X, state.Y[:, None], mask=mask)
+        _, _, x0, _, _ = j_prepare_fit(model, k_fit, MC_CFG["fit_restarts"])
+        fitted = model.replace(params=params, _cache=None)
+        base = jmc.draw_fresh_base_samples(cap + q, 1, nmc, k_base, seed=17)
+        acq = jmc.qLogNoisyExpectedImprovement(
+            model=fitted, cache=fitted.train_chol(), base_samples=base,
+            X_baseline=state.X, baseline_mask=mask)
+        skip = (state.n.astype(jnp.uint32) + 1) * jnp.uint32(MC_CFG["raw_samples"])
+        ics = j_gen_ics(acq, jnp.stack([jnp.zeros(d), jnp.ones(d)]), q, MC_CFG["num_restarts"],
+                        MC_CFG["raw_samples"], k_acq, sobol=sob_j, sobol_skip=skip)
+        return cand, val, params, x0, base, ics
+
+    cand_j, val_j, params_j, x0_j, base_j, ics_j = reference(st_j, jax.random.PRNGKey(11))
+    st_t = tloop.BOState(X=torch.tensor(np.asarray(st_j.X)), Y=torch.tensor(np.asarray(st_j.Y)),
+                         n=int(st_j.n))
+    cand_t, val_t, params_t = tloop._bo_step(
+        st_t, t_sobol_table(q * d, scramble=True, seed=3), make_generator(0, "cpu"),
+        acqf_name="qLogNEI", q=q, mc_samples=nmc, fit_x0=np.array(x0_j),
+        initial_conditions=np.array(ics_j), base_samples=np.array(base_j), **MC_CFG)
+    pt = convert.gp_params_to_numpy(params_t)
+    for f in convert.GPParams.FIELDS:
+        np.testing.assert_allclose(pt[f], np.asarray(getattr(params_j, f)), atol=5e-3, err_msg=f)
+    assert cand_t.shape == (q, d)
+    np.testing.assert_allclose(cand_t.numpy(), np.asarray(cand_j), atol=5e-3)
+    assert float(val_t) == pytest.approx(float(val_j), rel=5e-3, abs=5e-3)
+
+
+def test_run_qlognei_loop_small():
+    prob = Hartmann(dim=3, negate=True)
+    st = tloop.run_bo_loop(prob, d=3, n_init=6, iterations=2, seed=2, q=2, device="cpu",
+                           acqf_name="qLogNEI", mc_samples=16, **MC_CFG)
+    assert st.n == 10 and st.X.shape == (10, 3)
+    assert torch.isfinite(st.Y).all() and torch.all((st.X >= 0) & (st.X <= 1))
+
+
+@pytest.mark.slow
+def test_hartmann6_qlognei_regret_over_seeds_matches_reference():
+    """Config 2 (`bench.py:104-125`: Hartmann-6, q = 4, 16 initial points,
+    15 iterations, 128 qMC samples) over 8 seeds in both packages: the
+    port's mean regret is at most the reference's + 0.1."""
+    cfg = dict(num_restarts=6, raw_samples=64, fit_restarts=2, fit_maxiter=15, acq_maxiter=15,
+               acqf_name="qLogNEI", mc_samples=128)
+    jh = JHartmann(dim=6, negate=True)
+    regrets_t, regrets_j = [], []
+    for seed in range(8):
+        st = tloop.run_bo_loop(Hartmann(dim=6, negate=True), d=6, n_init=16, iterations=15,
+                               seed=seed, q=4, device="cpu", **cfg)
+        regrets_t.append(HARTMANN6_OPT - float(tloop.best_observed(st)))
+        st_j = jloop.run_bo_loop(jh, d=6, n_init=16, iterations=15, key=jax.random.PRNGKey(seed),
+                                 seed=seed, q=4, **cfg)
+        regrets_j.append(HARTMANN6_OPT - float(jloop.best_observed(st_j)))
+    mean_t, mean_j = float(np.mean(regrets_t)), float(np.mean(regrets_j))
+    print(f"config-2 regret over 8 seeds: port {mean_t:.4f} {regrets_t}, "
+          f"reference {mean_j:.4f} {regrets_j}")
+    assert mean_t <= mean_j + 0.1, (regrets_t, regrets_j)
 
 
 @pytest.mark.slow

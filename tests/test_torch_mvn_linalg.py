@@ -152,3 +152,53 @@ def test_psd_safe_cholesky_gradient_flows():
     (g,) = torch.autograd.grad(tc.chol_logdet(tc.psd_safe_cholesky(Kt)), Kt)
     jg = jax.grad(lambda A: jc.chol_logdet(jc.psd_safe_cholesky(A)))(jnp.asarray(K[0]))
     _close(g, jg, atol=1e-6)
+
+
+def _rungs(A, L):
+    """The ladder rung each factor was taken at, read off its diagonal:
+    `diag(L L^T) - diag(A) = jitter * max(mean |diag A|, floor)`."""
+    A = np.asarray(A, np.float64)
+    L = np.asarray(L, np.float64)
+    added = np.einsum("...ij,...ij->...i", L, L) - np.einsum("...ii->...i", A)
+    scale = np.maximum(np.abs(np.einsum("...ii->...i", A)).mean(-1), 1e-10)
+    jitter = (added.mean(-1) / scale).reshape(A.shape[0], -1).max(-1)
+    ladder = np.asarray(tc._JITTER_LADDER) + tc.DEFAULT_JITTER
+    return np.abs(np.log(jitter[:, None]) - np.log(ladder[None, :])).argmin(-1)
+
+
+def _with_lowest_eigenvalue(n, lowest, seed):
+    """A float32 covariance of mean diagonal ~1 whose smallest eigenvalue is
+    `lowest`: positive is well conditioned; negative is what the float32
+    cancellation of a singular posterior covariance leaves."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    lam = np.linspace(0.5, 1.5, n)
+    lam[0] = lowest
+    return ((Q * lam) @ Q.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [12, 300])
+@pytest.mark.parametrize("matrices_per_element,expected", [(1, [0, 3, 0]), (2, [0, 3, 5])])
+def test_psd_safe_cholesky_picks_the_rung_per_batch_element(n, matrices_per_element, expected):
+    """A t-batch of a well-conditioned covariance and two that need the
+    1e-2 and 1.0 rungs: each element takes its own rung, as the JAX function
+    mapped over the batch with `vmap` does (at n <= 256 every rung is
+    probed at once, above one at a time). Within an element every matrix
+    must factor (here two outputs, the posterior's `(b, m, q, q)` layout)."""
+    lows = [(0.3, 0.4), (-5e-3, 0.2), (0.2, -0.5)]
+    A = np.stack([
+        np.stack([_with_lowest_eigenvalue(n, lo, 10 * i + j)
+                  for j, lo in enumerate(pair[:matrices_per_element])])
+        for i, pair in enumerate(lows)
+    ])  # (3, matrices_per_element, n, n)
+    Lt = tc.psd_safe_cholesky(torch.tensor(A), batch_dims=1)
+    Lj = jax.jit(jax.vmap(jc.psd_safe_cholesky))(jnp.asarray(A))
+    assert torch.isfinite(Lt).all()
+    rungs_j = _rungs(A, Lj)
+    np.testing.assert_array_equal(rungs_j, expected)
+    np.testing.assert_array_equal(_rungs(A, Lt.numpy()), rungs_j)
+    # batch_dims=0 keeps the unmapped function: one rung for the whole tensor
+    L0 = tc.psd_safe_cholesky(torch.tensor(A))
+    np.testing.assert_array_equal(_rungs(A, L0.numpy()), _rungs(A, jc.psd_safe_cholesky(jnp.asarray(A))))
+    with pytest.raises(ValueError):
+        tc.psd_safe_cholesky(torch.tensor(A), batch_dims=3)

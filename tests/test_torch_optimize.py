@@ -120,3 +120,77 @@ def test_optimize_acqf_own_initial_conditions(acqfs):
                                  raw_samples=32, maxiter=20, seed=3, device="cpu")
     assert cand.shape == (1, 2) and torch.isfinite(val)
     assert torch.all(cand >= 0) and torch.all(cand <= 1)
+
+
+# ---------------------------------------------------------------------------
+# q = 4, d = 6: the joint candidate sets of config 2 (qLogNEI on Hartmann-6)
+
+
+def test_raw_q_batches_at_q4_are_the_reference_sobol_points():
+    """A q-batch is one point of a Sobol stream over q * d = 24 dims,
+    reshaped to (q, d): the same sets of whole q-batches in both packages."""
+    q, d = 4, 6
+    bounds = np.stack([np.zeros(d), np.ones(d)]).astype(np.float32)
+    sv_t, sh_t = t_sobol_table(q * d, seed=0)
+    sv_j, sh_j = j_sobol_table(q * d, seed=0)
+    raw_t = to.gen_batch_initial_conditions(
+        lambda X: X.sum((-1, -2)), torch.tensor(bounds), q, 64, 64, make_generator(0, "cpu"),
+        sobol=(sv_t, sh_t), sobol_skip=17 * 64).numpy()
+    raw_j = np.asarray(jo.gen_batch_initial_conditions(
+        lambda X: jnp.sum(X), jnp.asarray(bounds), q, 64, 64, jax.random.PRNGKey(0),
+        sobol=(sv_j, sh_j), sobol_skip=17 * 64))
+    assert raw_t.shape == (64, q, d)
+    key = lambda a: np.lexsort(a.reshape(len(a), -1).T)  # noqa: E731
+    np.testing.assert_array_equal(raw_t[key(raw_t)], raw_j[key(raw_j)])
+
+
+def test_boltzmann_selection_of_q_batches_matches_reference():
+    """With a large `eta` the Gumbel noise no longer matters and both
+    packages select the top q-batches by value, whole and in full."""
+    X = np.random.default_rng(3).uniform(size=(64, 4, 6)).astype(np.float32)
+    vals = np.random.default_rng(4).permutation(64).astype(np.float32)
+    got = to.initialize_q_batch(make_generator(0, "cpu"), torch.tensor(X), torch.tensor(vals), 6,
+                                eta=1e4).numpy()
+    ref = np.asarray(jo.initialize_q_batch(jax.random.PRNGKey(0), jnp.asarray(X),
+                                           jnp.asarray(vals), 6, eta=1e4))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, X[np.argsort(-vals)[:6]])
+
+
+def test_q4_lbfgs_lanes_match_reference():
+    """`(num_restarts, q * d)` lanes of one qLogNEI surface (q = 4, d = 6,
+    64 qMC samples) from the same initial conditions, with the loop's 15
+    ascent iterations: values within 1e-3 relative (the acquisition's own
+    float32 error is ~1e-4, see test_torch_mc_acquisition.py), candidates
+    within 1e-2. The joint surface of four points has nearly flat
+    directions, along which rounding moves an unconverged lane: 5.4e-3 at
+    most here, while the values still agree to 1.5e-4.)"""
+    from botorch_tpu.acquisition import monte_carlo as jmc
+    from botorch_tpu_torch.acquisition import monte_carlo as tmc
+
+    q, d, n = 4, 6, 14
+    rng = np.random.default_rng(6)
+    X = rng.uniform(size=(n, d)).astype(np.float32)
+    Y = (-np.sum((X - 0.4) ** 2, -1)).astype(np.float32)
+    pn = {"mean": np.array([0.0], np.float32),
+          "raw_lengthscale": np.log(np.full((1, d), 0.6, np.float32)),
+          "raw_outputscale": np.zeros(1, np.float32),
+          "raw_noise": np.log(np.array([1e-3], np.float32))}
+    jm = jgp.make_gp(jnp.asarray(X), jnp.asarray(Y)[:, None],
+                     params=jgp.GPParams(**{k: jnp.asarray(v) for k, v in pn.items()}))
+    tm = tgp.make_gp(X, Y[:, None], device="cpu", params=convert.gp_params_from_numpy(pn))
+    base = np.asarray(jmc._draw_base_samples(n + q, 1, 64, 2))
+    aj = jmc.qLogNoisyExpectedImprovement(model=jm, cache=jm.train_chol(),
+                                          base_samples=jnp.asarray(base), X_baseline=jnp.asarray(X))
+    at = tmc.qLogNoisyExpectedImprovement(model=tm, cache=tm.train_chol(),
+                                          base_samples=torch.tensor(base), X_baseline=torch.tensor(X))
+    bounds = np.stack([np.zeros(d), np.ones(d)]).astype(np.float32)
+    ics = rng.uniform(size=(6, q, d)).astype(np.float32)
+    cj, vj = jax.jit(lambda b, x0: jo.optimize_acqf(aj, b, q=q, maxiter=15, initial_conditions=x0,
+                                                    return_full=True))(
+        jnp.asarray(bounds), jnp.asarray(ics))
+    ct, vt = to.optimize_acqf(at, bounds, q=q, maxiter=15, initial_conditions=ics,
+                              return_full=True, device="cpu")
+    assert ct.shape == (6, q, d) and vt.shape == (6,)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-2)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-3, atol=1e-6)
