@@ -6,7 +6,13 @@ Each acquisition function is a dataclass holding the fitted model and its
 train cache (`model.train_chol()`), so every evaluation reuses one
 factorization. `__call__` follows BoTorch's t-batch contract, where the JAX
 package used `vmap`: `X: (b, q, d)` with `q = 1` maps to values `(b,)`.
-Fully-Bayesian ensembles are not part of this port yet.
+
+A fully-Bayesian model carries an ensemble `model.batch_shape` (the `S`
+MCMC draws). Its dims go after the t-batch (`X` becomes `(b, 1, 1, d)`
+for `S`), so a posterior moment is `(b, S)`, and `reduce_ensemble` takes
+the mean (logmeanexp for the log classes) over `S` alone: one
+candidate's value never depends on the rest of the batch, as under the
+JAX package's per-candidate `vmap`.
 """
 
 from __future__ import annotations
@@ -23,11 +29,20 @@ from botorch_tpu_torch.utils.probability import (
     log_ndtr,
     ndtr,
 )
-from botorch_tpu_torch.utils.safe_math import maximum
+from botorch_tpu_torch.utils.safe_math import logmeanexp, maximum
 
 Tensor = torch.Tensor
 
 _MIN_VAR = 1e-12
+
+
+def reduce_ensemble(val: Tensor, ndims: int, log: bool = False) -> Tensor:
+    """Average `val` over its trailing `ndims` ensemble dims: the mean for
+    linear acquisitions, logmeanexp for log ones. No-op for `ndims = 0`."""
+    if ndims == 0:
+        return val
+    dims = tuple(range(-ndims, 0))
+    return logmeanexp(val, dim=dims) if log else torch.mean(val, dim=dims)
 
 
 @dataclass(kw_only=True)
@@ -39,11 +54,17 @@ class AnalyticAcquisitionFunction:
     maximize: bool = True
 
     def _mean_and_sigma(self, X: Tensor) -> tuple[Tensor, Tensor]:
-        """Posterior mean and stddev at `X: (b, 1, d)` -> `(b,)` each."""
+        """Posterior mean and stddev at `X: (b, 1, d)` -> `(b, *ensemble)`
+        each; the ensemble dims are inserted after the t-batch."""
+        ens = len(self.model.batch_shape)
+        X = X.reshape(*X.shape[:-2], *(1,) * ens, *X.shape[-2:])
         post = self.model.posterior(X, cache=self.cache)
         mean = post.mean[..., 0, 0]
         sigma = torch.sqrt(maximum(post.variance[..., 0, 0], _MIN_VAR))
         return mean, sigma
+
+    def _reduce(self, val: Tensor, log: bool = False) -> Tensor:
+        return reduce_ensemble(val, len(self.model.batch_shape), log)
 
     def _u(self, X: Tensor, best_f) -> tuple[Tensor, Tensor]:
         mean, sigma = self._mean_and_sigma(X)
@@ -59,7 +80,7 @@ class ExpectedImprovement(AnalyticAcquisitionFunction):
 
     def __call__(self, X: Tensor) -> Tensor:
         u, sigma = self._u(X, self.best_f)
-        return sigma * ei_helper(u)
+        return self._reduce(sigma * ei_helper(u))
 
 
 @dataclass(kw_only=True)
@@ -71,7 +92,7 @@ class LogExpectedImprovement(AnalyticAcquisitionFunction):
 
     def __call__(self, X: Tensor) -> Tensor:
         u, sigma = self._u(X, self.best_f)
-        return log_ei_helper(u) + torch.log(sigma)
+        return self._reduce(log_ei_helper(u) + torch.log(sigma), log=True)
 
 
 @dataclass(kw_only=True)
@@ -82,7 +103,7 @@ class ProbabilityOfImprovement(AnalyticAcquisitionFunction):
 
     def __call__(self, X: Tensor) -> Tensor:
         u, _ = self._u(X, self.best_f)
-        return ndtr(u)
+        return self._reduce(ndtr(u))
 
 
 @dataclass(kw_only=True)
@@ -93,7 +114,7 @@ class LogProbabilityOfImprovement(AnalyticAcquisitionFunction):
 
     def __call__(self, X: Tensor) -> Tensor:
         u, _ = self._u(X, self.best_f)
-        return log_ndtr(u)
+        return self._reduce(log_ndtr(u), log=True)
 
 
 @dataclass(kw_only=True)
@@ -105,7 +126,7 @@ class UpperConfidenceBound(AnalyticAcquisitionFunction):
     def __call__(self, X: Tensor) -> Tensor:
         mean, sigma = self._mean_and_sigma(X)
         delta = torch.sqrt(torch.as_tensor(self.beta, dtype=sigma.dtype, device=sigma.device)) * sigma
-        return mean + delta if self.maximize else -(mean - delta)
+        return self._reduce(mean + delta if self.maximize else -(mean - delta))
 
 
 @dataclass(kw_only=True)
@@ -114,7 +135,7 @@ class PosteriorMean(AnalyticAcquisitionFunction):
 
     def __call__(self, X: Tensor) -> Tensor:
         mean, _ = self._mean_and_sigma(X)
-        return mean if self.maximize else -mean
+        return self._reduce(mean if self.maximize else -mean)
 
 
 ANALYTIC = {

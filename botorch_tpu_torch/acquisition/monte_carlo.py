@@ -33,6 +33,7 @@ from botorch_tpu_torch.sampling.sobol import (
     sobol_table,
 )
 from botorch_tpu_torch.utils import safe_math as sm
+from botorch_tpu_torch.utils.transforms import is_fully_bayesian
 
 Tensor = torch.Tensor
 
@@ -312,6 +313,12 @@ def make_mc_acqf(
     """An MC acquisition with the model's train cache and qMC base samples
     over `q` (+ pending, + baseline) points. For the noisy variants pass
     `X_baseline=`."""
+    if is_fully_bayesian(model):
+        raise NotImplementedError(
+            "MC acquisition over a fully-Bayesian ensemble is not ported: the t-batch "
+            "reduction, scale_tril's batch dims and the noisy fallback min do not carry "
+            "the ensemble dim yet (ROADMAP item 14a, the follow-up of item 14)"
+        )
     if prune_baseline and kwargs.get("X_baseline") is not None:
         raise NotImplementedError(
             "prune_baseline needs acquisition/utils.prune_inferior_points, which comes "

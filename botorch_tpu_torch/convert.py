@@ -1,10 +1,12 @@
 r"""Carry GP hyperparameters between the JAX package and the port.
 
 Parameters cross as a dict of numpy arrays keyed by the `GPParams` field
-names, so neither package imports the other. The flat-vector helpers keep
-`jax.flatten_util.ravel_pytree`'s order of the JAX `GPParams` fields
-(mean, raw_lengthscale, raw_outputscale, raw_noise), with any leading
-batch dims kept in front of the flat axis.
+names, so neither package imports the other (an ensemble's leading `(S,)`
+dim crosses with them). NUTS state crosses the same way: the adaptation
+(step size, `chol_cov`) and the thinned unconstrained draws. The
+flat-vector helpers keep `jax.flatten_util.ravel_pytree`'s order of the
+JAX `GPParams` fields (mean, raw_lengthscale, raw_outputscale,
+raw_noise), with any leading batch dims kept in front of the flat axis.
 """
 
 from __future__ import annotations
@@ -58,3 +60,20 @@ def unflatten_params(flat: Tensor, like: GPParams) -> GPParams:
     if off != flat.shape[-1]:
         raise ValueError(f"flat vector has {flat.shape[-1]} entries, params need {off}")
     return GPParams(*fields)
+
+
+def nuts_adaptation_from_numpy(step_size, chol_cov, dtype=torch.float32, device="cpu") -> dict:
+    """`{"step_size": 0-d, "chol_cov": (k, k)}` tensors of a NUTS
+    adaptation (the JAX `run_nuts`'s `step_size` and dense mass factor)."""
+    kw = dict(dtype=dtype, device=device)
+    return {"step_size": torch.as_tensor(np.asarray(step_size), **kw).reshape(()),
+            "chol_cov": torch.as_tensor(np.asarray(chol_cov), **kw)}
+
+
+def saas_draws_from_numpy(z_samples, dtype=torch.float32, device="cpu") -> Tensor:
+    """Thinned unconstrained SAAS draws `(S, k)`, chain-major, for
+    `models.fully_bayesian.load_saas_samples`."""
+    z = torch.as_tensor(np.asarray(z_samples), dtype=dtype, device=device)
+    if z.ndim != 2:
+        raise ValueError(f"SAAS draws are (S, k), got shape {tuple(z.shape)}")
+    return z

@@ -4,9 +4,10 @@ r"""Exact Gaussian-process regression (counterpart of
 The model is a frozen dataclass of tensors holding the train data, the
 standardization constants and log-space hyperparameters. Hyperparameters
 carry a leading `(m,)` output dim and may carry more leading batch dims
-(the fit's restarts): every method broadcasts over them, where the JAX
-package used `vmap`. Padded train data is decoupled by a validity mask
-(`_mask_K`), so one capacity serves a growing BO history.
+(the fit's restarts, or the `(S,)` ensemble of a NUTS fit, `batch_shape`):
+every method broadcasts over them, where the JAX package used `vmap`.
+Padded train data is decoupled by a validity mask (`_mask_K`), so one
+capacity serves a growing BO history.
 
 Defaults match the reference: ARD RBF kernel without outputscale, the
 dim-scaled LogNormal lengthscale prior, LogNormal(-4, 1) noise prior,
@@ -98,6 +99,8 @@ class SingleTaskGP:
     kernel: str = "rbf"
     use_outputscale: bool = False
     priors: str = "lognormal"
+    # marks NUTS-fitted ensembles (`models/fully_bayesian.load_saas_samples`)
+    _is_fully_bayesian: bool = False
 
     # ------------------------------------------------------------------ #
     def replace(self, **kw) -> "SingleTaskGP":
@@ -118,6 +121,12 @@ class SingleTaskGP:
     @property
     def infer_noise(self) -> bool:
         return self.Yvar is None
+
+    @property
+    def batch_shape(self) -> tuple[int, ...]:
+        """Leading batch dims of the hyperparameters before the output dim
+        (the MCMC ensemble of a fully-Bayesian model)."""
+        return tuple(self.params.mean.shape[:-1])
 
     @property
     def num_valid(self) -> Tensor:
@@ -162,14 +171,18 @@ class SingleTaskGP:
     # ------------------------------------------------------------------ #
     def train_chol(self, params: Optional[GPParams] = None) -> tuple:
         """Per-output Cholesky of `K + noise I`, weights `K^-1 (y - mu)` and
-        the explicit inverse factor: `(L (m, n, n), alpha (m, n),
-        Linv (m, n, n))`, or `(L, alpha)` above `_EXPLICIT_LINV_MAX_N`."""
+        the explicit inverse factor: `(L (..., m, n, n), alpha (..., m, n),
+        Linv (..., m, n, n))`, or `(L, alpha)` above `_EXPLICIT_LINV_MAX_N`.
+
+        One jitter rung serves every batch element of an output (the whole
+        `(S, n, n)` stack of an ensemble), as the JAX package's
+        `psd_safe_cholesky` tests all of its input for finiteness."""
         params = self.params if params is None else params
         explicit_inv = self.num_train <= _EXPLICIT_LINV_MAX_N
         Ls, alphas, Linvs = [], [], []
         for out in range(self.num_outputs):
             p = params.output(out)
-            L = psd_safe_cholesky(self._train_cov(p, out))
+            L = psd_safe_cholesky(self._train_cov(p, out), batch_dims=0)
             resid = self._mask_vec(self.Y[..., out] - p.mean[..., None])
             if explicit_inv:
                 Linv = tril_inverse(L)

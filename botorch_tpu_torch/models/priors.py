@@ -81,6 +81,45 @@ class Gamma:
         return max((a - 1.0) / b, 1e-4) if a >= 1 else 1e-4
 
 
+@dataclass(frozen=True)
+class HalfCauchy:
+    """Half-Cauchy on `x >= 0`: the SAAS shrinkage prior."""
+
+    scale: float = 1.0
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        return (
+            math.log(2.0 / math.pi)
+            - math.log(self.scale)
+            - torch.log1p(torch.square(x / self.scale))
+        )
+
+    def sample(self, generator, shape, dtype=torch.float32, device=None) -> Tensor:
+        u = 1e-7 + (1.0 - 2e-7) * _rand(generator, shape, dtype, device)
+        return self.scale * torch.tan(0.5 * math.pi * u)
+
+    @property
+    def mode(self) -> float:
+        return self.scale  # the median-scale init convention (the mode is 0)
+
+
+@dataclass(frozen=True)
+class Normal:
+    loc: float = 0.0
+    scale: float = 1.0
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        z = (x - self.loc) / self.scale
+        return -0.5 * z * z - math.log(self.scale) - _log_sqrt_2pi
+
+    def sample(self, generator, shape, dtype=torch.float32, device=None) -> Tensor:
+        return self.loc + self.scale * _randn(generator, shape, dtype, device)
+
+    @property
+    def mode(self) -> float:
+        return self.loc
+
+
 def dim_scaled_lognormal_lengthscale_prior(d: int) -> LogNormal:
     """[Hvarfner2024vanilla] lengthscale prior: LogNormal(sqrt(2) + log(d)/2,
     sqrt(3))."""

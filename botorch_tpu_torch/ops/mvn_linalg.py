@@ -185,6 +185,19 @@ class _QdLarge(torch.autograd.Function):
         return _closed_form_grads(alpha, kinv, g_quad, g_ld)
 
 
+def mvn_quad_logdet_parts(K: Tensor, r: Tensor):
+    """`(quad, logdet, alpha, Kinv)` of `K (..., n, n)`, `r (..., n)`, with
+    no autograd: K1's four outputs for n <= 64 (the plain version above),
+    for callers that form the gradient themselves (`dquad/dK = -alpha
+    alpha^T`, `dlogdet/dK = Kinv`, `dquad/dr = 2 alpha`)."""
+    batch = K.shape[:-2]
+    n = K.shape[-1]
+    Kb = K.reshape(-1, n, n)
+    rb = r.expand(*batch, n).reshape(-1, n)
+    outs = qd_plain(Kb, rb) if n > MAX_N else _qd_core(Kb, rb)
+    return tuple(o.reshape(*batch, *o.shape[1:]) for o in outs)
+
+
 def mvn_quad_logdet(K: Tensor, r: Tensor) -> tuple[Tensor, Tensor]:
     r"""`(r^T K^-1 r, log|K|)` for PSD `K: (..., n, n)` and `r: (..., n)`.
 

@@ -7,8 +7,8 @@ base-sample tensors, drawn once and held by the acquisition function
 (`acquisition/monte_carlo.py`). Every random draw comes from an explicit
 `torch.Generator` on the posterior's device.
 
-`IndexSampler` (ensemble posteriors) and the two pairwise samplers come
-with the slices whose models need them.
+`IndexSampler` draws indices into an ensemble posterior's leading dim.
+The two pairwise samplers come with the slice whose models need them.
 """
 
 from __future__ import annotations
@@ -105,6 +105,42 @@ class ListSampler:
 
     def __call__(self, posteriors: Sequence) -> list:
         return [s(p) for s, p in zip(self.samplers, posteriors)]
+
+
+@dataclass(frozen=True)
+class IndexSampler:
+    """Ensemble index draws: the base sample is an index into the
+    posterior's leading ensemble dim, and a sample is that member's mean
+    (each member taken as a point mass). `weights (S,)`, if given, biases
+    the draw as categorical probabilities. The JAX package's debug-mode
+    check that the members have no variance is not ported (its `settings`
+    flags are ROADMAP item 20)."""
+
+    sample_shape: tuple = (128,)
+    seed: int = 0
+    weights: Optional[Tensor] = None
+
+    def indices(self, ensemble_size: int, device=None) -> Tensor:
+        """`sample_shape` indices in `[0, ensemble_size)` on `device` (CUDA
+        unless given), from a generator seeded with `seed`."""
+        device = resolve_device(device)
+        gen = make_generator(self.seed, device)
+        n = math.prod(self.sample_shape)
+        if self.weights is not None:
+            w = torch.as_tensor(self.weights, device=device)
+            idx = torch.multinomial(w, n, replacement=True, generator=gen)
+        else:
+            idx = torch.randint(0, ensemble_size, (n,), generator=gen, device=device)
+        return idx.reshape(self.sample_shape)
+
+    def __call__(self, posterior, indices: Optional[Tensor] = None) -> Tensor:
+        """`(*sample_shape, ..., q, m)` member means; `indices` replaces the
+        draw."""
+        mean = posterior.mean  # (S, ..., q, m)
+        if indices is None:
+            indices = self.indices(mean.shape[0], device=mean.device)
+        indices = torch.as_tensor(indices, device=mean.device)
+        return mean[indices]
 
 
 def get_sampler(posterior, sample_shape: tuple, seed: int = 0):

@@ -37,3 +37,16 @@ def standardize(Y: Tensor) -> Tensor:
     std = torch.std(Y, dim=stddim, correction=1, keepdim=True)
     std = torch.where(std < 1e-12, 1.0, std)
     return (Y - mean) / std
+
+
+def is_ensemble(model) -> bool:
+    """Whether the model's hyperparameters carry leading batch dims beyond
+    the output dim (an MCMC or fantasy ensemble)."""
+    return len(tuple(getattr(model, "batch_shape", ()))) > 0
+
+
+def is_fully_bayesian(model) -> bool:
+    """Whether the model is a NUTS-fitted ensemble (`fit_saas_gp`)."""
+    if getattr(model, "num_mcmc_samples", None):
+        return True
+    return bool(getattr(model, "_is_fully_bayesian", False))

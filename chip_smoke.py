@@ -1,5 +1,5 @@
 """On-card smoke test of botorch_tpu_torch: build, kernel checks, the
-config-1 (LogEI) and config-2 (qLogNEI) loops.
+config-1 (LogEI), config-2 (qLogNEI) and config-3 (SAASBO) loops.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -36,7 +36,23 @@ Phases, each printing one JSON line:
      iterations, 128 qMC samples, config 1's budgets, seed 0) through
      `run_bo_loop`, with the kernels' launches over the run (K2's by shape
      and path), the final regret beside the initial design's, and one
-     profiled step at the last history size.
+     profiled step at the last history size;
+  8. nuts_step: one NUTS transition of 8 chains at config 3's first
+     iteration (10 Branin-embedded points in 26 rows, d=8), on the card
+     and on the CPU from the same chain starts and draws;
+  9. nuts: `fit_saas_gp` at `bench.py:76-99`'s throughput shape (n=24,
+     d=10, 64 chains, 128 warmup draws, 128 samples, thinning 8): NUTS
+     transitions/s, leapfrogs and host reads per transition, accept
+     probability, divergence rate, step size and K1 launches;
+ 10. saasbo_loop: config 3 (SAASBO on Branin embedded in d=8, n_init=10,
+     16 iterations, 8 chains, 256/128/8, depth 6, ensemble LogEI with 32
+     restarts, 512 raw samples, 50 iterations, seed 0) through
+     `run_saasbo`, all 16 iterations at the config's capacity and
+     budgets, with K1's and K2's launches by shape, the final regret
+     beside the initial design's, the active dims' median lengthscales
+     beside the distractors', and one profiled step.
+The k1 phase also holds K1 at config 3's NUTS shapes with one matrix of
+the batch not positive definite (NaN for it, the others right, no raise).
 The k1 and k2 phases also carry the card's SM clock and power, sampled
 by `nvidia-smi` while they run, and `floor_ms`: the device time of `add_`
 on a one-element tensor, the shortest kernel the card runs. Then the
@@ -67,6 +83,23 @@ QNEI_CFG = dict(LOOP_CFG, acqf_name="qLogNEI", mc_samples=128)
 # card against CPU in one qLogNEI step: max |candidate difference| and
 # |value difference| / max(1, |value|)
 MC_STEP_TOL = 2e-2
+# config 3 (`bench.py:127-172`): SAASBO on Branin embedded in d = 8 (dims
+# 0 and 1 active), 10 initial points and 16 iterations (capacity 26); NUTS
+# with 8 chains, 256 warmup draws, 128 samples, thinning 8 (16 kept
+# models), depth 6; ensemble LogEI, 32 restarts, 512 raw samples, 50
+# ascent iterations
+CONFIG3 = dict(d=8, n_init=10, iterations=16)
+SAASBO_CFG = dict(num_warmup=256, num_samples=128, thinning=8, num_chains=8, max_depth=6,
+                  num_restarts=32, raw_samples=512, acq_maxiter=50)
+# `bench.py:76-99`'s NUTS throughput shape
+NUTS_BENCH = dict(n=24, d=10, chains=64, num_warmup=128, num_samples=128, thinning=8)
+NUTS_ACCEPT = (0.5, 0.98)
+NUTS_MAX_DIVERGENCE = 0.10
+# card against CPU in one float32 NUTS transition (up to 63 leapfrogs of a
+# potential whose K1 and K2 round differently on each side): the tree's
+# depth, leaves and divergence equal, max |z difference| and the
+# potential's relative difference
+NUTS_STEP_TOL = {"z": 1e-3, "pe_rel": 1e-4}
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 /
 # float64 operations per second outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -177,26 +210,29 @@ def time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, reps: int = 1) -> dict:
+def device_profile(fn, reps: int = 1, cpu: bool = True) -> dict:
     """`{kernel name: (launches, device microseconds)}` of `reps` calls of
-    `fn`, from `torch.profiler`'s CUDA activity."""
+    `fn`, from `torch.profiler`'s CUDA activity (with its CPU activity too
+    unless `cpu` is false, which costs less for a long call). The device
+    events are summed from the profiler's raw event list: `key_averages()`
+    takes minutes over the ~10^6 launches of a SAASBO step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     rows = {}
-    for e in prof.key_averages():
+    for e in prof.profiler.kineto_results.events():
         # CPU ops carry their kernels' time too: keep the device events only
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.is_user_annotation():
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+        us = e.duration_ns() / 1e3
         if us > 0:
-            rows[e.key] = (e.count, float(us))
+            count, total = rows.get(e.name(), (0, 0.0))
+            rows[e.name()] = (count + 1, total + us)
     return rows
 
 
@@ -324,8 +360,33 @@ def k1_case(B, n, dtype, gen, floor):
 
 
 # the last two fill every SM with more than one matrix's block
+# (8, 26) and (64, 24): config 3's NUTS potential and `bench.py`'s NUTS
+# throughput shape
 K1_SHAPES = ((7, 13), (32, 24), (8, 64), (2, 35)) + tuple(
-    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)) + ((200, 35), (200, 64))
+    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)) + ((200, 35), (200, 64), (8, 26), (64, 24))
+
+
+def k1_nan_member_case(B, n, gen) -> dict:
+    """K1 on a float32 batch whose middle matrix is not positive definite,
+    as a divergent leapfrog gives: NaN quad and logdet for it, the other
+    matrices within tolerance of the plain version, and no raise."""
+    import torch
+
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda, qd_plain
+
+    K, r = _spd(B, n, torch.float32, gen)
+    bad = B // 2
+    K[bad, 3, 3] = -1.0
+    got = qd_cuda(K, r)
+    torch.cuda.synchronize()
+    keep = [i for i in range(B) if i != bad]
+    ref = qd_plain(K[keep], r[keep])
+    atol, rtol = K1_TOL["float32"]
+    errs = {key: max_err(a[keep], b) for key, a, b in zip(K1_OUTPUTS, got, ref)}
+    nan = bool(torch.isnan(got[0][bad]) and torch.isnan(got[1][bad]))
+    ok = nan and all(within(errs[key], b, atol, rtol) for key, b in zip(K1_OUTPUTS, ref))
+    return {"B": B, "n": n, "dtype": "float32", "bad_member": bad, "bad_is_nan": nan,
+            "max_abs_err": errs, "ok": bool(ok)}
 
 
 def k1_op_kernels() -> dict:
@@ -363,9 +424,10 @@ def phase_k1(gen):
             for (B, n) in K1_SHAPES
         ]
         op = k1_op_kernels()
-    ok = all(c["ok"] for c in cases) and op["ok"]
+        nan_member = [k1_nan_member_case(B, n, gen) for B, n in ((8, 26), (64, 24))]
+    ok = all(c["ok"] for c in cases + nan_member) and op["ok"]
     return {"phase": "k1", "ok": ok, "floor_ms": floor, "clocks": clocks.summary(),
-            "op_kernels": op, "cases": cases}
+            "op_kernels": op, "nan_member": nan_member, "cases": cases}
 
 
 def k2_path_params(path: str, B: int, n: int, m: int, d: int, dtype, num_sms: int) -> tuple:
@@ -479,6 +541,13 @@ def k2_case(B, n, m, d, coincident, kind, dtype, gen, floor, both_paths=False):
 # baseline + 4 candidate points for the 64 raw q-batches and the 6 restarts
 CONFIG2_K2 = ((2, 76, 76, 6, "shared"), (1, 76, 76, 6, "shared"), (64, 76, 80, 6, None),
               (64, 80, 80, 6, "batched"), (6, 76, 80, 6, None), (6, 80, 80, 6, "batched"))
+# config 3's (matern52): the NUTS potential's covariance of 26 padded rows
+# for 8 chains, the ensemble `train_chol`'s for 16 members, k(x_train, X)
+# and k(X, X) of the ensemble LogEI at the 512 raw points and 32 restarts
+# (times 16 members), and the NUTS throughput shape's covariance
+CONFIG3_K2 = ((8, 26, 26, 8, "shared"), (16, 26, 26, 8, "shared"), (8192, 26, 1, 8, None),
+              (8192, 1, 1, 8, "batched"), (512, 26, 1, 8, None), (512, 1, 1, 8, "batched"),
+              (64, 24, 24, 10, "shared"))
 K2_SHAPES = ((2, 35, 35, 2, "shared"), (1, 35, 35, 2, "shared"), (1, 300, 257, 7, None),
              (6, 35, 1, 2, None), (6, 1, 1, 2, None), (64, 35, 1, 2, None), (64, 1, 1, 2, None),
              (80, 35, 1, 2, None), (80, 1, 1, 2, None), (1, 64, 48, 8, None),
@@ -528,6 +597,8 @@ def phase_k2(gen):
                 for shape in K2_SHAPES:
                     both = kind == "rbf" and shape in CONFIG2_K2
                     cases.append(k2_case(*shape, kind, dtype, gen, floor, both_paths=both))
+            for shape in CONFIG3_K2:
+                cases.append(k2_case(*shape, "matern52", dtype, gen, floor))
     return {"phase": "k2", "ok": all(c["ok"] for c in cases), "floor_ms": floor,
             "clocks": clocks.summary(), "op_launches": k2_op_launches(), "cases": cases}
 
@@ -712,6 +783,261 @@ def phase_qnei_loop():
     }
 
 
+def _branin_embedded():
+    """Config 3's objective: Branin on dims 0 and 1 of the unit cube, the
+    other dims distractors; maximized."""
+    from botorch_tpu_torch.test_functions.synthetic import Branin
+    from botorch_tpu_torch.utils.transforms import unnormalize
+
+    prob = Branin(negate=True)
+    return lambda X: prob(unnormalize(X[:, :2], prob.bounds))
+
+
+def phase_nuts_step():
+    """One NUTS transition of 8 chains at config 3's first iteration (the
+    10-point Sobol design of seed 0 in 26 padded rows, d = 8; step size
+    0.1 and the identity mass factor, as a fit starts) on the fit's
+    potential and closed-form gradient, on the card and on the CPU (plain
+    versions) from the same chain starts and draws."""
+    import torch
+
+    from botorch_tpu_torch.models.fully_bayesian import (
+        init_saas_chains,
+        make_saas_potential_and_grad,
+    )
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.sampling import nuts
+    from botorch_tpu_torch.sampling.sobol import draw_sobol, sobol_table
+    from botorch_tpu_torch.settings import make_generator
+
+    d, n0 = CONFIG3["d"], CONFIG3["n_init"]
+    cap = n0 + CONFIG3["iterations"]
+    chains, depth = SAASBO_CFG["num_chains"], SAASBO_CFG["max_depth"]
+    sv, shift = sobol_table(d, scramble=True, seed=0, device="cpu")
+    X = torch.zeros(cap, d)
+    X[:n0] = draw_sobol(sv, shift, n0)
+    Y = torch.zeros(cap)
+    Y[:n0] = _branin_embedded()(X[:n0])
+    mask = torch.arange(cap) < n0
+    gen = make_generator(0, "cpu")
+    z0 = init_saas_chains(gen, chains, d, True)
+    draws = nuts.draw_transition(gen, chains, z0.shape[1], depth, torch.float32, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        base = make_gp(X, Y, kernel="matern52", use_outputscale=True, mask=mask, device=dev)
+        pg = nuts.safe(make_saas_potential_and_grad(base.X, base.Y[:, 0], mask=base.mask))
+        k = z0.shape[1]
+        z = z0.to(dev)
+        pe, g = pg(z)
+        z1, pe1, _, st = nuts.nuts_transition(
+            pg, z, pe, g, torch.tensor(0.1, device=dev), torch.eye(k, device=dev), depth,
+            draws=nuts.TransitionDraws(*(t.to(dev) for t in draws)),
+        )
+        out[dev] = {"z": z1.cpu(), "pe": pe1.cpu(),
+                    **{key: st[key].cpu() for key in ("depth", "num_leaves", "diverging")}}
+    same_tree = all(torch.equal(out["cuda"][key], out["cpu"][key])
+                    for key in ("depth", "num_leaves", "diverging"))
+    z_err = max_err(out["cuda"]["z"], out["cpu"]["z"])
+    pe_err = float(((out["cuda"]["pe"] - out["cpu"]["pe"]).abs() / out["cpu"]["pe"].abs()).max())
+    ok = same_tree and z_err <= NUTS_STEP_TOL["z"] and pe_err <= NUTS_STEP_TOL["pe_rel"]
+    return {"phase": "nuts_step", "ok": bool(ok), "same_tree": same_tree, "z_max_abs_err": z_err,
+            "pe_max_rel_err": pe_err, "tol": NUTS_STEP_TOL,
+            "depth": out["cuda"]["depth"].tolist(), "num_leaves": out["cuda"]["num_leaves"].tolist()}
+
+
+def _reset_counts():
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.sampling.nuts import nuts_transition
+
+    qd_cuda.launches = kernel_matrix_cuda.launches = 0
+    nuts_transition.transitions = nuts_transition.leapfrogs = nuts_transition.host_reads = 0
+
+
+def phase_nuts():
+    """`fit_saas_gp` at `bench.py:76-99`'s shape, timed from the first call
+    to a `synchronize()`: NUTS transitions/s counted as `bench.py` counts
+    them (chains x (warmup + max(samples // chains, 8))), the lockstep
+    leapfrogs and host reads per transition, and the sampler's statistics."""
+    import numpy as np
+    import torch
+
+    from botorch_tpu_torch.models.fully_bayesian import fit_saas_gp
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.sampling.nuts import nuts_transition
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.synthetic import Branin
+    from botorch_tpu_torch.utils.transforms import unnormalize
+
+    cfg = NUTS_BENCH
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.uniform(size=(cfg["n"], cfg["d"])), dtype=torch.float32)
+    prob = Branin()
+    Y = -prob(unnormalize(X[:, :2], prob.bounds))
+    fit = dict(num_samples=cfg["num_samples"], thinning=cfg["thinning"], num_chains=cfg["chains"])
+    # warm-up: library handles and the allocator at the same shapes
+    fit_saas_gp(X, Y, make_generator(0, "cuda"), num_warmup=2, **dict(fit, num_samples=8))
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    model, stats = fit_saas_gp(X, Y, make_generator(1, "cuda"), num_warmup=cfg["num_warmup"], **fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    transitions = cfg["chains"] * (cfg["num_warmup"] + max(cfg["num_samples"] // cfg["chains"], 8))
+    steps = nuts_transition.transitions
+    accept = float(stats["accept_prob"])
+    div = float(stats["divergence_rate"])
+    finite = bool(torch.isfinite(model.params.raw_lengthscale).all())
+    ok = (NUTS_ACCEPT[0] <= accept <= NUTS_ACCEPT[1] and div <= NUTS_MAX_DIVERGENCE and finite
+          and qd_cuda.launches > 0
+          and nuts_transition.host_reads <= SAASBO_CFG["max_depth"] * steps)
+    return {
+        "phase": "nuts", "ok": bool(ok), "wall_s": wall, "transitions": transitions,
+        "transitions_per_s": transitions / wall, "lockstep_transitions": steps,
+        "leapfrogs_per_transition": nuts_transition.leapfrogs / steps,
+        "mean_leaves_per_chain": float(stats["mean_leaves"]),
+        "host_reads_per_transition": nuts_transition.host_reads / steps,
+        "accept_prob": accept, "accept_bounds": list(NUTS_ACCEPT), "divergence_rate": div,
+        "max_divergence_rate": NUTS_MAX_DIVERGENCE, "step_size": float(stats["step_size"]),
+        "ensemble_size": model.batch_shape[0], "finite": finite,
+        "launches": {"mvn_quad_logdet": qd_cuda.launches,
+                     "mvn_quad_logdet_shape": [cfg["chains"], cfg["n"]]},
+    }
+
+
+def phase_saasbo_loop():
+    """Config 3 through `run_saasbo`, seed 0, at `bench.py`'s budgets and
+    capacity (26 rows), with K1's and K2's launches by shape over
+    the run, the NUTS counters, the final regret beside the initial
+    design's, the SAAS dimension check of the JAX package's test (the
+    median of the two active dims' median lengthscales below the
+    distractors'), and one profiled step."""
+    import numpy as np
+    import torch
+
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.sampling.nuts import nuts_transition
+    from botorch_tpu_torch.saasbo import run_saasbo, saasbo_step
+    from botorch_tpu_torch.settings import make_generator
+
+    objective = _branin_embedded()
+    d, n0, iterations = CONFIG3["d"], CONFIG3["n_init"], CONFIG3["iterations"]
+    capacity = n0 + iterations
+    # warm-up: one short step on buffers of the loop's capacity, then the
+    # counted, timed run
+    Xw = torch.rand(capacity, d, generator=make_generator(1, "cuda"), device="cuda")
+    saasbo_step(Xw, objective(Xw), n0, make_generator(1, "cuda"),
+                **dict(SAASBO_CFG, num_warmup=4, num_samples=16, acq_maxiter=3))
+    torch.cuda.synchronize()
+    _reset_counts()
+    run = {}
+    t0 = time.perf_counter()
+
+    def loop():
+        run["res"] = run_saasbo(objective, d=d, n_init=n0, iterations=iterations, seed=0,
+                                **SAASBO_CFG)
+
+    k1_shapes = k1_shapes_of(lambda: run.update(k2=k2_shapes_of(loop)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = run["res"]
+    regret = -float(res.best_curve[-1]) - BRANIN_OPT
+    initial_regret = -float(res.Y[:n0].max()) - BRANIN_OPT
+    ml = res.median_lengthscales[-1].cpu().numpy()
+    active, distractors = float(np.median(ml[:2])), float(np.median(ml[2:]))
+    X = res.X
+    finite = bool(torch.isfinite(res.Y).all() and torch.isfinite(X).all())
+    in_box = bool(((X >= 0) & (X <= 1)).all())
+    steps = nuts_transition.transitions
+    main_k1 = [r for r in k1_shapes if (r["B"], r["n"]) == (SAASBO_CFG["num_chains"], capacity)]
+    ok = (finite and in_box and X.is_cuda and X.shape == (n0 + iterations, d)
+          and regret < initial_regret and active < distractors
+          and main_k1 and main_k1[0]["launches"] > 0 and kernel_matrix_cuda.launches > 0)
+    out = {
+        "phase": "saasbo_loop", "ok": bool(ok), "wall_s": wall, "iterations": iterations,
+        "capacity": capacity, "iters_per_s": iterations / wall,
+        "regret": regret, "initial_design_regret": initial_regret,
+        "median_lengthscales_last": ml.tolist(), "active_median": active,
+        "distractor_median": distractors,
+        "launches": {"mvn_quad_logdet": qd_cuda.launches, "kernel_matrix": kernel_matrix_cuda.launches},
+        "mvn_quad_logdet_shapes": k1_shapes, "kernel_matrix_shapes": run["k2"],
+        "nuts": {"lockstep_transitions": steps,
+                 "leapfrogs_per_transition": nuts_transition.leapfrogs / max(steps, 1),
+                 "host_reads_per_transition": nuts_transition.host_reads / max(steps, 1)},
+        "finite": finite, "in_box": in_box,
+    }
+    out["last_step"] = saasbo_step_breakdown(res)
+    return out
+
+
+def saasbo_step_breakdown(res) -> dict:
+    """Wall time of one SAASBO step at the loop's last history size (all
+    rows but the last valid, in the loop's padded buffers) and where its
+    device time goes (profiled in a second, identical call; CUDA activity
+    only: the profiler's CPU activity over ~10^6 launches costs minutes)."""
+    import torch
+
+    from botorch_tpu_torch.saasbo import saasbo_step
+    from botorch_tpu_torch.settings import make_generator
+
+    n = res.X.shape[0] - 1
+    capacity = CONFIG3["n_init"] + CONFIG3["iterations"]
+    X = torch.zeros(capacity, res.X.shape[1], device=res.X.device)
+    Y = torch.zeros(capacity, device=res.X.device)
+    X[: n + 1], Y[: n + 1] = res.X, res.Y
+
+    def step():
+        return saasbo_step(X, Y, n, make_generator(5, "cuda"), seed=0, **SAASBO_CFG)
+
+    # the loop left the libraries warm: one timed step, one profiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rows = device_profile(step, cpu=False)
+    profile_s = time.perf_counter() - t0
+    busy_ms = sum(us for _, us in rows.values()) / 1e3
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:8]
+
+    def pick(tag):
+        hits = [(c, us) for k, (c, us) in rows.items() if tag in k]
+        return {"launches": sum(c for c, _ in hits), "device_ms": sum(us for _, us in hits) / 1e3}
+
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_launches": sum(c for c, _ in rows.values()), "profile_s": profile_s,
+        "mvn_quad_logdet": pick("mvn_qd_kernel"), "kernel_matrix": pick("kernel_matrix_"),
+        "top_kernels": [{"name": k[:80], "launches": c, "device_ms": us / 1e3} for k, (c, us) in top],
+    }
+
+
+def k1_shapes_of(step) -> list:
+    """K1 launches of one call of `step` by (B, n), counted by wrapping the
+    wrapper that `_qd_core` calls; its own count is carried back to it."""
+    from collections import Counter
+
+    from botorch_tpu_torch.ops import mvn_linalg
+
+    inner = mvn_linalg.qd_cuda
+    seen = Counter()
+
+    def counting(K, r):
+        seen[tuple(r.shape)] += 1
+        return inner(K, r)
+
+    counting.launches = 0  # the wrapper counts its launches on the name it is called by
+    mvn_linalg.qd_cuda = counting
+    try:
+        step()
+    finally:
+        mvn_linalg.qd_cuda = inner
+        inner.launches += counting.launches
+    return [{"B": B, "n": n, "launches": c} for (B, n), c in seen.most_common()]
+
+
 def step_breakdown(state, q: int, cfg: dict) -> dict:
     """Wall time of one BO step at the loop's last history size (the full
     state less one q-batch) and where its device time goes (profiled in a
@@ -785,33 +1111,52 @@ def k2_shapes_of(step) -> list:
             for (B, n, m, d, path), c in seen.most_common()]
 
 
-def kernels_line(k1, k2, loop, qnei):
-    """One row per kernel at its main-path shape, its launches from the run
+def kernels_line(k1, k2, loop, qnei, nuts, saasbo):
+    """One row per kernel at each main-path shape, its launches from the run
     of the loop that launches it there (`launches_from`): K1 at the
-    config-1 fit's (B=2, n=35) float32; K2 at the config-1 fit's (B=2,
-    35 x 35, d=2) and acquisition's (B=6, 35 x 1, d=2), and at the config-2
-    ascent's k(X_train, X_full) (B=6, 76 x 80, d=6), rbf float32. Every
-    number but `bound_ms` is measured in this run."""
-    c1 = next(c for c in k1["cases"] if (c["B"], c["n"], c["dtype"]) == (2, 35, "float32"))
+    config-1 fit's (B=2, n=35), config 3's NUTS potential (8, 26) and the
+    NUTS throughput shape (64, 24), float32; K2 at the config-1 fit's (B=2,
+    35 x 35, d=2) and acquisition's (B=6, 35 x 1, d=2) and the config-2
+    ascent's k(X_train, X_full) (B=6, 76 x 80, d=6), rbf float32, and at the
+    config-3 shape it launches most, matern52 float32. A row's `launches`
+    counts the kernel's launches over that run at the row's shape where
+    the run counts them by shape, else all of them. Every number but
+    `bound_ms` is measured in this run."""
+    def k1_at(B, n):
+        c = next(c for c in k1["cases"] if (c["B"], c["n"], c["dtype"]) == (B, n, "float32"))
+        return c, max(c["max_abs_err"].values())
 
-    def k2_at(shape):
-        return next(c for c in k2["cases"] if (c["B"], c["n"], c["m"], c["d"]) == shape
-                    and (c["kind"], c["dtype"]) == ("rbf", "float32"))
+    def k2_at(shape, kind):
+        c = next(c for c in k2["cases"] if (c["B"], c["n"], c["m"], c["d"]) == shape
+                 and (c["kind"], c["dtype"]) == (kind, "float32"))
+        return c, c["max_abs_err"]
 
-    rows = [("mvn_quad_logdet", "botorch_tpu_torch/csrc/mvn_quad_logdet.cu",
-             "botorch_tpu/ops/pallas_linalg.py:134", (2, 35), c1,
-             max(c1["max_abs_err"].values()), loop)]
+    def k1_launches(run, B, n):
+        return next((r["launches"] for r in run["mvn_quad_logdet_shapes"]
+                     if (r["B"], r["n"]) == (B, n)), 0)
+
+    k1_src = ("mvn_quad_logdet", "botorch_tpu_torch/csrc/mvn_quad_logdet.cu",
+              "botorch_tpu/ops/pallas_linalg.py:134")
+    k2_src = ("kernel_matrix", "botorch_tpu_torch/csrc/kernel_matrix.cu",
+              "botorch_tpu/ops/pallas_kernels.py:84")
+    n3 = saasbo["capacity"]
+    top3 = saasbo["kernel_matrix_shapes"][0]
+    shape3 = (top3["B"], top3["n"], top3["m"], top3["d"])
+    rows = [
+        (*k1_src, (2, 35), *k1_at(2, 35), loop["launches"]["mvn_quad_logdet"], loop),
+        (*k1_src, (8, n3), *k1_at(8, n3), k1_launches(saasbo, 8, n3), saasbo),
+        (*k1_src, (64, 24), *k1_at(64, 24), nuts["launches"]["mvn_quad_logdet"], nuts),
+    ]
     for shape, run in (((2, 35, 35, 2), loop), ((6, 35, 1, 2), loop), ((6, 76, 80, 6), qnei)):
-        c2 = k2_at(shape)
-        rows.append(("kernel_matrix", "botorch_tpu_torch/csrc/kernel_matrix.cu",
-                     "botorch_tpu/ops/pallas_kernels.py:84", shape, c2, c2["max_abs_err"], run))
+        rows.append((*k2_src, shape, *k2_at(shape, "rbf"), run["launches"]["kernel_matrix"], run))
+    rows.append((*k2_src, shape3, *k2_at(shape3, "matern52"), top3["launches"], saasbo))
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "shape": list(shape),
-         "dtype": "float32", "path": c.get("path"), "launches": run["launches"][name],
+         "dtype": "float32", "kind": c.get("kind"), "path": c.get("path"), "launches": launches,
          "launches_from": run["phase"], "max_abs_err": err,
          "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": c["library_ms"], "floor_ms": c["floor_ms"]}
-        for name, src, rep, shape, c, err, run in rows
+        for name, src, rep, shape, c, err, launches, run in rows
     ]}
 
 
@@ -836,6 +1181,8 @@ def main() -> int:
         ("build", phase_build), ("k1", lambda: phase_k1(gen)),
         ("k2", lambda: phase_k2(gen)), ("bo_step", phase_bo_step),
         ("bo_loop", phase_bo_loop), ("mc_step", phase_mc_step), ("qnei_loop", phase_qnei_loop),
+        ("nuts_step", phase_nuts_step), ("nuts", phase_nuts),
+        ("saasbo_loop", phase_saasbo_loop),
     )
     for name, fn in phases:
         try:
@@ -853,7 +1200,8 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
-    emit(kernels_line(results["k1"], results["k2"], results["bo_loop"], results["qnei_loop"]))
+    emit(kernels_line(results["k1"], results["k2"], results["bo_loop"], results["qnei_loop"],
+                      results["nuts"], results["saasbo_loop"]))
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,7 +16,7 @@ pytestmark = pytest.mark.cuda
 
 KINDS = ["rbf", "matern52", "matern32", "matern12"]
 K1_SHAPES = [(7, 13), (32, 24), (8, 64), (2, 35), (3, 1)] + [
-    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)] + [(200, 35), (200, 64)]
+    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)] + [(200, 35), (200, 64), (8, 26), (64, 24)]
 K2_SHAPES = [(2, 35, 35, 2, True), (1, 35, 35, 2, True), (1, 300, 257, 7, False),
              (6, 35, 1, 2, False), (6, 1, 1, 2, False), (64, 35, 1, 2, False),
              (64, 1, 1, 2, False), (80, 35, 1, 2, False), (80, 1, 1, 2, False),
@@ -189,3 +189,119 @@ def test_qlognei_loop_runs_on_the_card_through_k2(dev):
     assert st.n == 24 and X.is_cuda and torch.isfinite(st.Y).all()
     assert bool(((X >= 0) & (X <= 1)).all())
     assert kernel_matrix_cuda.launches > 0
+
+
+@pytest.mark.parametrize("B,n", [(8, 26), (64, 24)])
+def test_k1_nan_member_at_the_nuts_shapes(dev, B, n):
+    """Config 3's NUTS potential (8 chains, 26 rows) and the NUTS
+    throughput shape (64, 24): a chain whose covariance does not factor,
+    as in a divergent leapfrog, gives NaN and leaves the others right."""
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda, qd_plain
+
+    K, r = (t.to(dev) for t in _spd(B, n, torch.float32, seed=3))
+    K[B // 2, 3, 3] = -1.0
+    got = qd_cuda(K, r)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0][B // 2]) and torch.isnan(got[1][B // 2])
+    keep = [i for i in range(B) if i != B // 2]
+    ref = qd_plain(K[keep], r[keep])
+    atol, rtol = _k1_tol(torch.float32)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a[keep], b, atol=atol + rtol * float(b.abs().max()), rtol=0)
+
+
+def test_nuts_transition_on_the_card_matches_the_cpu(dev):
+    """One transition of 8 chains on the SAAS potential of a 26-row padded
+    history (10 valid, d = 8), the same chain starts and draws on both
+    sides: the same trees; z within 1e-3, the potential within 1e-4
+    relative (`chip_smoke.py`'s `nuts_step` tolerances)."""
+    from botorch_tpu_torch.models.fully_bayesian import (
+        init_saas_chains,
+        make_saas_potential_and_grad,
+    )
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.sampling import nuts
+    from botorch_tpu_torch.settings import make_generator
+
+    rng = np.random.default_rng(0)
+    X = np.zeros((26, 8), np.float32)
+    X[:10] = rng.uniform(size=(10, 8))
+    Y = np.zeros(26, np.float32)
+    Y[:10] = np.sin(6 * X[:10, 0]) + X[:10, 1]
+    mask = np.arange(26) < 10
+    gen = make_generator(0, "cpu")
+    z0 = init_saas_chains(gen, 8, 8, True)
+    draws = nuts.draw_transition(gen, 8, z0.shape[1], 6, torch.float32, "cpu")
+    out = {}
+    for d in ("cpu", dev):
+        base = make_gp(X, Y, kernel="matern52", use_outputscale=True, mask=mask, device=d)
+        pg = nuts.safe(make_saas_potential_and_grad(base.X, base.Y[:, 0], mask=base.mask))
+        k = z0.shape[1]
+        pe, g = pg(z0.to(d))
+        z1, pe1, _, st = nuts.nuts_transition(
+            pg, z0.to(d), pe, g, torch.tensor(0.1, device=d), torch.eye(k, device=d), 6,
+            draws=nuts.TransitionDraws(*(t.to(d) for t in draws)))
+        out[str(d)] = (z1.cpu(), pe1.cpu(), st["depth"].cpu(), st["num_leaves"].cpu())
+    (zc, pc, dc, lc), (zg, pg_, dg, lg) = out["cpu"], out[str(dev)]
+    assert torch.equal(dc, dg) and torch.equal(lc, lg)
+    torch.testing.assert_close(zg, zc, atol=1e-3, rtol=0)
+    torch.testing.assert_close(pg_, pc, rtol=1e-4, atol=0)
+
+
+def test_saasbo_runs_on_the_card_through_both_kernels(dev):
+    """Two SAASBO iterations at config 3's widths (d = 8, 8 chains,
+    capacity 12) and a small NUTS budget: K1 carries the potential at
+    (8 chains, 12 rows) and K2 every kernel matrix."""
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.saasbo import run_saasbo
+    from botorch_tpu_torch.test_functions.synthetic import Branin
+    from botorch_tpu_torch.utils.transforms import unnormalize
+
+    prob = Branin(negate=True)
+    qd_cuda.launches = kernel_matrix_cuda.launches = 0
+    res = run_saasbo(lambda X: prob(unnormalize(X[:, :2], prob.bounds)), d=8, n_init=10,
+                     iterations=2, num_warmup=16, num_samples=16, thinning=2, num_chains=8,
+                     num_restarts=4, raw_samples=32, acq_maxiter=5)
+    assert res.X.is_cuda and res.X.shape == (12, 8) and torch.isfinite(res.Y).all()
+    assert qd_cuda.launches > 0 and kernel_matrix_cuda.launches > 0
+
+
+def test_saasbo_step_on_the_card_matches_the_cpu(dev):
+    """One config-3 acquisition step (d = 8, 20 valid rows of 26, a
+    16-member ensemble, 32 restarts from the same initial conditions, 512
+    raw samples, 50 ascent iterations) on the card and on the CPU from the
+    same draws: the values within 1e-3 relative, the CPU's acquisition at
+    the card's candidate within 1e-3 of the CPU's optimum, and the two
+    active coordinates within 2e-2 (the six distractor coordinates lie on
+    a near-flat ridge and are not compared)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    from saas_posterior import history
+
+    from botorch_tpu_torch.acquisition.analytic import make_acqf
+    from botorch_tpu_torch.saasbo import saasbo_step
+    from botorch_tpu_torch.settings import make_generator
+
+    X, Y, mask, _ = history()
+    n, d = int(mask.sum()), X.shape[1]
+    rng = np.random.default_rng(3)
+    z = rng.normal(scale=0.3, size=(16, 4 + d))
+    z[:, 1:4] += [0.0, np.log(1e-2), np.log(0.1)]  # outputscale 1, noise 1e-2, tausq 0.1
+    z[:, 4:6] += np.log(40.0)  # active lengthscales ~0.5, distractors ~3
+    z = torch.tensor(z, dtype=torch.float32)
+    ics = torch.tensor(rng.uniform(size=(32, 1, d)), dtype=torch.float32)
+    out = {}
+    for device in ("cpu", dev):
+        cand, val, model, _ = saasbo_step(
+            torch.tensor(X, device=device), torch.tensor(Y, device=device), n,
+            make_generator(0, device), seed=0, num_restarts=32, raw_samples=512, acq_maxiter=50,
+            z_samples=z.to(device), initial_conditions=ics.to(device))
+        out[str(device)] = (cand.cpu(), float(val), model)
+    (cc, vc, model_c), (cg, vg, _) = out["cpu"], out[str(dev)]
+    assert abs(vg - vc) <= 1e-3 * max(1.0, abs(vc))
+    acqf = make_acqf("LogEI", model_c, best_f=torch.tensor(float(Y[:n].max())))
+    assert abs(float(acqf(cg[None])) - vc) <= 1e-3 * max(1.0, abs(vc))
+    torch.testing.assert_close(cg[:, :2], cc[:, :2], atol=2e-2, rtol=0)

@@ -81,7 +81,8 @@ def test_sources_exist():
         "ops/mvn_linalg.py", "ops/lbfgs.py", "models/priors.py",
         "models/gp.py", "posteriors/gaussian.py", "acquisition/analytic.py",
         "optim/optimize.py", "sampling/qmc.py", "sampling/samplers.py",
-        "acquisition/monte_carlo.py",
+        "acquisition/monte_carlo.py", "sampling/nuts.py", "models/fully_bayesian.py",
+        "posteriors/fully_bayesian.py", "saasbo.py",
     ):
         assert mod in names, mod
     csrc = {p.name for p in (ROOT / "botorch_tpu_torch" / "csrc").glob("*.cu")}
@@ -150,6 +151,40 @@ def test_mc_slice_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         bo_step(state, sobol_table(2), acqf_name="qLogNEI")
     assert draw_sobol_normal_samples(3, 4, device="cpu").device.type == "cpu"
+
+
+def test_saasbo_slice_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a card")
+    from botorch_tpu_torch.models.fully_bayesian import fit_saas_gp
+    from botorch_tpu_torch.saasbo import run_saasbo
+    from botorch_tpu_torch.sampling.samplers import IndexSampler
+
+    X = np.random.default_rng(0).uniform(size=(5, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_saas_gp(X, X.sum(-1), num_warmup=2, num_samples=2, thinning=1, num_chains=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_saasbo(lambda X: X.sum(-1), d=2, n_init=3, iterations=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IndexSampler().indices(4)
+
+
+def test_mc_acquisition_refuses_fully_bayesian_models():
+    """MC acquisition over an ensemble is a named follow-up: it raises
+    rather than broadcast the ensemble dim against the t-batch."""
+    from botorch_tpu_torch.acquisition.monte_carlo import (
+        qLogNoisyExpectedImprovement,
+        make_mc_acqf,
+    )
+    from botorch_tpu_torch.models.fully_bayesian import load_saas_samples
+    from botorch_tpu_torch.models.gp import make_gp
+
+    X = np.random.default_rng(0).uniform(size=(6, 2))
+    base = make_gp(X, X.sum(-1), kernel="matern52", use_outputscale=True, device="cpu")
+    model = load_saas_samples(torch.zeros(3, 6), base)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        make_mc_acqf(qLogNoisyExpectedImprovement, model, q=2, X_baseline=base.X)
+    assert make_mc_acqf(qLogNoisyExpectedImprovement, base, q=2, X_baseline=base.X) is not None
 
 
 def test_wrappers_refuse_other_devices():
