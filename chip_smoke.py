@@ -1,5 +1,6 @@
 """On-card smoke test of botorch_tpu_torch: build, kernel checks, the
-config-1 (LogEI), config-2 (qLogNEI) and config-3 (SAASBO) loops.
+config-1 (LogEI), config-2 (qLogNEI), config-3 (SAASBO) and config-4
+(qLogNEHVI, m = 2) loops.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -18,8 +19,10 @@ Phases, each printing one JSON line:
      kernels at both loops' launch shapes and larger ones, values and
      gradients each within a stated tolerance, with times and the floor;
      at the config-2 shapes (rbf) also both of K2's paths timed on the same
-     inputs (`narrow_ms`, `tiled_ms`; `path` is the one `k2_plan` picks);
-     and the device launches of the op's forward and backward;
+     inputs (`narrow_ms`, `tiled_ms`; `path` is the one `k2_plan` picks),
+     and the same at config 4's shapes (rbf, d=2, 90 padded rows and
+     joint posteriors of 91-94 points); and the device launches of the
+     op's forward and backward;
   4. bo_step: one config-1 BO step on the card against the same step on
      the CPU (plain versions), with the same restart starts and initial
      conditions;
@@ -50,7 +53,21 @@ Phases, each printing one JSON line:
      `run_saasbo`, all 16 iterations at the config's capacity and
      budgets, with K1's and K2's launches by shape, the final regret
      beside the initial design's, the active dims' median lengthscales
-     beside the distractors', and one profiled step.
+     beside the distractors', and one profiled step;
+ 11. mo_step: one config-4 qLogNEHVI step (10 BraninCurrin points in 90
+     rows, q=4 sequential greedy) on the card against the same step on the
+     CPU, from the same fit starts, initial conditions of each pick and
+     base samples: each pick's max |candidate difference| and the value's
+     relative difference, and where a pick differs, the CPU acquisition of
+     that pick at the card's candidate against its value at the CPU's;
+ 12. mo_loop: config 4 (qLogNEHVI on BraninCurrin, d=2, m=2, n_init=10,
+     all 20 iterations, q=4 sequential greedy, num_restarts=4,
+     raw_samples=32, fit_restarts=2, fit_maxiter=15, acq_maxiter=15, 32 MC
+     samples, seed 0) through `run_mo_bo_loop`: iterations/s and
+     evaluations/s, the observed hypervolume and its fraction of `max_hv`
+     beside the initial design's, K1's and K2's launches (K2's by shape and
+     path; K1 launches none, the 90 padded rows being above its n <= 64),
+     and one profiled step at the last history size.
 The k1 phase also holds K1 at config 3's NUTS shapes with one matrix of
 the batch not positive definite (NaN for it, the others right, no raise).
 The k1 and k2 phases also carry the card's SM clock and power, sampled
@@ -91,6 +108,23 @@ MC_STEP_TOL = 2e-2
 CONFIG3 = dict(d=8, n_init=10, iterations=16)
 SAASBO_CFG = dict(num_warmup=256, num_samples=128, thinning=8, num_chains=8, max_depth=6,
                   num_restarts=32, raw_samples=512, acq_maxiter=50)
+# config 4 (`bench.py:174-218`): qLogNEHVI on BraninCurrin (d = 2, m = 2,
+# reference point (-18, -6)), 10 initial points and 20 iterations of q = 4
+# sequential-greedy picks, so the padded capacity is 10 + 20 * 4 = 90
+CONFIG4 = dict(d=2, m=2, n_init=10, iterations=20, q=4)
+MO_CFG = dict(num_restarts=4, raw_samples=32, fit_restarts=2, fit_maxiter=15, acq_maxiter=15,
+              mc_samples=32)
+# the loop's observed hypervolume as a fraction of BraninCurrin's max_hv:
+# at least this (the JAX package measured 0.959-0.967 over its seeds, the
+# BoTorch CPU replica 0.845-0.901, `BASELINE.md:71`) and above the
+# initial design's
+HV_FRACTION_BAR = 0.90
+# card against CPU in one config-4 step: max |candidate difference| of each
+# pick and |value difference| / max(1, |value|), as config 2's `MC_STEP_TOL`;
+# a pick that moves must keep the CPU acquisition within this of its value
+# at the CPU's own pick (relative, as the SAASBO step test holds it)
+MO_STEP_TOL = 2e-2
+MO_PICK_ACQ_TOL = 1e-3
 # `bench.py:76-99`'s NUTS throughput shape
 NUTS_BENCH = dict(n=24, d=10, chains=64, num_warmup=128, num_samples=128, thinning=8)
 NUTS_ACCEPT = (0.5, 0.98)
@@ -548,6 +582,13 @@ CONFIG2_K2 = ((2, 76, 76, 6, "shared"), (1, 76, 76, 6, "shared"), (64, 76, 80, 6
 CONFIG3_K2 = ((8, 26, 26, 8, "shared"), (16, 26, 26, 8, "shared"), (8192, 26, 1, 8, None),
               (8192, 1, 1, 8, "batched"), (512, 26, 1, 8, None), (512, 1, 1, 8, "batched"),
               (64, 24, 24, 10, "shared"))
+# config 4's (rbf, d = 2): the fit's covariance of 90 padded rows for its 2
+# restarts and `train_chol`'s (each once per output), and the joint
+# posterior of the 90 baseline rows and the 1-4 sequential-greedy points,
+# k(x_train, X_full) and k(X_full, X_full), for the 32 raw points of pick 0
+# and the 4 restarts of pick 3
+CONFIG4_K2 = ((2, 90, 90, 2, "shared"), (1, 90, 90, 2, "shared"), (32, 90, 91, 2, None),
+              (32, 91, 91, 2, "batched"), (4, 90, 94, 2, None), (4, 94, 94, 2, "batched"))
 K2_SHAPES = ((2, 35, 35, 2, "shared"), (1, 35, 35, 2, "shared"), (1, 300, 257, 7, None),
              (6, 35, 1, 2, None), (6, 1, 1, 2, None), (64, 35, 1, 2, None), (64, 1, 1, 2, None),
              (80, 35, 1, 2, None), (80, 1, 1, 2, None), (1, 64, 48, 8, None),
@@ -599,6 +640,8 @@ def phase_k2(gen):
                     cases.append(k2_case(*shape, kind, dtype, gen, floor, both_paths=both))
             for shape in CONFIG3_K2:
                 cases.append(k2_case(*shape, "matern52", dtype, gen, floor))
+            for shape in CONFIG4_K2:
+                cases.append(k2_case(*shape, "rbf", dtype, gen, floor, both_paths=True))
     return {"phase": "k2", "ok": all(c["ok"] for c in cases), "floor_ms": floor,
             "clocks": clocks.summary(), "op_launches": k2_op_launches(), "cases": cases}
 
@@ -1014,6 +1057,150 @@ def saasbo_step_breakdown(res) -> dict:
     }
 
 
+def _pick_acqf(model, state, base, ref_point, j, pending):
+    """Pick j's qLogNEHVI of a config-4 step (`mo_loop._mo_bo_step`): the
+    joint of the padded baseline, one candidate and the j earlier picks."""
+    import torch
+
+    from botorch_tpu_torch.acquisition.multi_objective import make_in_graph_nehvi_cells
+    from botorch_tpu_torch.mo_loop import _qlognehvi
+
+    cap = state.X.shape[0]
+    cache = model.train_chol()
+    cells = make_in_graph_nehvi_cells(model, cache, state.X, base[:, :cap], ref_point,
+                                      baseline_mask=torch.arange(cap) < state.n)
+    return _qlognehvi(model, cache, state, base, ref_point, cells, 1 + j, pending if j else None)
+
+
+def phase_mo_step():
+    """One config-4 step at the padded state after the initial design (10
+    BraninCurrin points of seed 0 in 90 rows), on the card and on the CPU
+    (plain versions), from the same fit starts, initial conditions of each
+    of the 4 picks, and base samples. A pick that differs by more than
+    `MO_STEP_TOL` passes if the CPU's acquisition of that pick (its fitted
+    model, the card's earlier picks pending) is at the card's candidate
+    within `MO_PICK_ACQ_TOL` of its value at the CPU's."""
+    import torch
+
+    from botorch_tpu_torch.acquisition.monte_carlo import draw_fresh_base_samples
+    from botorch_tpu_torch.fit import _prepare_fit
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.mo_loop import (
+        MOBOState, _mo_bo_step, append_mo_observations, init_mo_state,
+    )
+    from botorch_tpu_torch.sampling.sobol import sobol_table
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.multi_objective import BraninCurrin
+
+    prob = BraninCurrin(negate=True)
+    d, q = CONFIG4["d"], CONFIG4["q"]
+    cap = CONFIG4["n_init"] + CONFIG4["iterations"] * q
+    state, X0 = init_mo_state(CONFIG4["n_init"], d, CONFIG4["m"], cap, seed=0, device="cpu")
+    state = append_mo_observations(state, X0, prob(X0))
+    mask = torch.arange(cap) < state.n
+    model = make_gp(state.X, state.Y, mask=mask, device="cpu")
+    _, _, x0, _, _ = _prepare_fit(model, make_generator(1, "cpu"), MO_CFG["fit_restarts"])
+    ics = torch.rand(q, MO_CFG["num_restarts"], 1, d, generator=make_generator(2, "cpu"))
+    base = draw_fresh_base_samples(cap + q, CONFIG4["m"], MO_CFG["mc_samples"],
+                                   make_generator(3, "cpu"), seed=23)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = MOBOState(X=state.X.to(dev), Y=state.Y.to(dev), n=state.n)
+        t0 = time.perf_counter()
+        cand, val, params = _mo_bo_step(
+            st, sobol_table(q * d, seed=0, device=dev), make_generator(0, dev),
+            prob.ref_point, q=q, fit_x0=x0, initial_conditions=ics, base_samples=base, **MO_CFG)
+        out[dev] = {"candidate": cand.cpu(), "value": float(val), "params": params,
+                    "seconds": time.perf_counter() - t0}
+    c_gpu, c_cpu = out["cuda"]["candidate"], out["cpu"]["candidate"]
+    pick_err = [max_err(c_gpu[j], c_cpu[j]) for j in range(q)]
+    val_err = abs(out["cuda"]["value"] - out["cpu"]["value"]) / max(1.0, abs(out["cpu"]["value"]))
+    fitted = make_gp(state.X, state.Y, mask=mask, device="cpu").replace(
+        params=out["cpu"]["params"])
+    ref = prob.ref_point
+    picks, ok = [], bool(((c_gpu >= 0) & (c_gpu <= 1)).all())
+    for j in range(q):
+        row = {"pick": j, "candidate_max_abs_err": pick_err[j]}
+        if not (math.isfinite(pick_err[j]) and pick_err[j] <= MO_STEP_TOL):
+            acqf = _pick_acqf(fitted, state, base, ref, j, c_gpu[:j])
+            with torch.no_grad():
+                at_card = float(acqf(c_gpu[j:j + 1][None]))
+                at_cpu = float(acqf(c_cpu[j:j + 1][None]))
+            row.update(acq_at_card=at_card, acq_at_cpu=at_cpu)
+            ok &= math.isfinite(at_card) and at_card >= at_cpu - MO_PICK_ACQ_TOL * max(
+                1.0, abs(at_cpu))
+        picks.append(row)
+    # the value of the last pick moves with its candidate; held where every
+    # pick agrees
+    if all(e <= MO_STEP_TOL for e in pick_err):
+        ok &= val_err <= MO_STEP_TOL
+    return {"phase": "mo_step", "ok": bool(ok), "picks": picks, "value_rel_err": val_err,
+            "tol": MO_STEP_TOL, "pick_acq_tol": MO_PICK_ACQ_TOL,
+            "value": {k: v["value"] for k, v in out.items()},
+            "seconds": {k: v["seconds"] for k, v in out.items()},
+            "raw_lengthscale_max_abs_err": max_err(out["cuda"]["params"].raw_lengthscale.cpu(),
+                                                   out["cpu"]["params"].raw_lengthscale)}
+
+
+def phase_mo_loop():
+    """Config 4 through `run_mo_bo_loop` at `bench.py`'s budgets, seed 0,
+    all 20 iterations, with K1's and K2's launches over the run (K2's by
+    shape and path), the observed hypervolume's fraction of `max_hv`
+    beside the initial design's, and one profiled step at the last history
+    size."""
+    import torch
+
+    from botorch_tpu_torch.mo_loop import (
+        MOBOState, _mo_bo_step, observed_hypervolume, run_mo_bo_loop,
+    )
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.sampling.sobol import sobol_table
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.multi_objective import BraninCurrin
+
+    prob = BraninCurrin(negate=True)
+    n0, iters, q, d = CONFIG4["n_init"], CONFIG4["iterations"], CONFIG4["q"], CONFIG4["d"]
+    cap = n0 + iters * q
+    loop = dict(d=d, m=CONFIG4["m"], ref_point=prob.ref_point, n_init=n0, q=q, **MO_CFG)
+    # warm-up at the same capacity, then the counted, timed run
+    run_mo_bo_loop(prob, iterations=1, capacity=cap, seed=1, **loop)
+    torch.cuda.synchronize()
+    _reset_counts()
+    run = {}
+    t0 = time.perf_counter()
+    k2_shapes = k2_shapes_of(lambda: run.update(
+        state=run_mo_bo_loop(prob, iterations=iters, seed=0, **loop)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state = run["state"]
+    launches = {"mvn_quad_logdet": qd_cuda.launches, "kernel_matrix": kernel_matrix_cuda.launches}
+    by_path = {}
+    for row in k2_shapes:
+        by_path[row["path"]] = by_path.get(row["path"], 0) + row["launches"]
+    hv = observed_hypervolume(state, prob.ref_point)
+    hv0 = observed_hypervolume(MOBOState(X=state.X, Y=state.Y, n=n0), prob.ref_point)
+    X = state.X[: state.n]
+    shape_ok = state.X.shape == (cap, d) and state.n == cap and state.X.is_cuda
+    finite = bool(torch.isfinite(state.Y[: state.n]).all() and torch.isfinite(X).all())
+    in_box = bool(((X >= 0) & (X <= 1)).all())
+    frac, frac0 = hv / prob.max_hv, hv0 / prob.max_hv
+    ok = (shape_ok and finite and in_box and frac >= HV_FRACTION_BAR and frac > frac0
+          and launches["kernel_matrix"] > 0 and launches["mvn_quad_logdet"] == 0)
+    last = MOBOState(X=state.X, Y=state.Y, n=state.n - q)
+    sob = sobol_table(q * d, seed=0, device="cuda")
+    return {
+        "phase": "mo_loop", "ok": bool(ok), "wall_s": wall, "iterations": iters,
+        "capacity": cap, "iters_per_s": iters / wall, "evals_per_s": iters * q / wall,
+        "hypervolume": hv, "hv_fraction": frac, "initial_design_hv_fraction": frac0,
+        "hv_fraction_bar": HV_FRACTION_BAR, "launches": launches,
+        "kernel_matrix_by_path": by_path, "kernel_matrix_shapes": k2_shapes,
+        "shape_ok": shape_ok, "finite": finite, "in_box": in_box,
+        "last_step": profile_step(lambda: _mo_bo_step(
+            last, sob, make_generator(5, "cuda"), prob.ref_point, q=q, **MO_CFG)),
+    }
+
+
 def k1_shapes_of(step) -> list:
     """K1 launches of one call of `step` by (B, n), counted by wrapping the
     wrapper that `_qd_core` calls; its own count is carried back to it."""
@@ -1042,17 +1229,20 @@ def step_breakdown(state, q: int, cfg: dict) -> dict:
     """Wall time of one BO step at the loop's last history size (the full
     state less one q-batch) and where its device time goes (profiled in a
     second, identical call)."""
-    import torch
-
     from botorch_tpu_torch.loop import BOState, _bo_step
     from botorch_tpu_torch.sampling.sobol import sobol_table
     from botorch_tpu_torch.settings import make_generator
 
     st = BOState(X=state.X, Y=state.Y, n=state.n - q)
     sob = sobol_table(q * state.X.shape[-1], seed=0, device="cuda")
+    return profile_step(lambda: _bo_step(st, sob, make_generator(5, "cuda"), q=q, **cfg))
 
-    def step():
-        return _bo_step(st, sob, make_generator(5, "cuda"), q=q, **cfg)
+
+def profile_step(step) -> dict:
+    """Wall time of a warm call of `step`, and where the device time of a
+    second, identical call goes: launches and device ms of the kernels, K2
+    by shape and path, the largest device kernels."""
+    import torch
 
     step()
     torch.cuda.synchronize()
@@ -1111,14 +1301,16 @@ def k2_shapes_of(step) -> list:
             for (B, n, m, d, path), c in seen.most_common()]
 
 
-def kernels_line(k1, k2, loop, qnei, nuts, saasbo):
+def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo):
     """One row per kernel at each main-path shape, its launches from the run
     of the loop that launches it there (`launches_from`): K1 at the
     config-1 fit's (B=2, n=35), config 3's NUTS potential (8, 26) and the
     NUTS throughput shape (64, 24), float32; K2 at the config-1 fit's (B=2,
     35 x 35, d=2) and acquisition's (B=6, 35 x 1, d=2) and the config-2
-    ascent's k(X_train, X_full) (B=6, 76 x 80, d=6), rbf float32, and at the
-    config-3 shape it launches most, matern52 float32. A row's `launches`
+    ascent's k(X_train, X_full) (B=6, 76 x 80, d=6), rbf float32, at the
+    config-3 shape it launches most, matern52 float32, and at the config-4
+    fit's (B=2, 90 x 90, d=2) and last pick's ascent k(X_train, X_full)
+    (B=4, 90 x 94, d=2), rbf float32. A row's `launches`
     counts the kernel's launches over that run at the row's shape where
     the run counts them by shape, else all of them. Every number but
     `bound_ms` is measured in this run."""
@@ -1150,6 +1342,10 @@ def kernels_line(k1, k2, loop, qnei, nuts, saasbo):
     for shape, run in (((2, 35, 35, 2), loop), ((6, 35, 1, 2), loop), ((6, 76, 80, 6), qnei)):
         rows.append((*k2_src, shape, *k2_at(shape, "rbf"), run["launches"]["kernel_matrix"], run))
     rows.append((*k2_src, shape3, *k2_at(shape3, "matern52"), top3["launches"], saasbo))
+    for shape in ((2, 90, 90, 2), (4, 90, 94, 2)):
+        launches = sum(r["launches"] for r in mo["kernel_matrix_shapes"]
+                       if (r["B"], r["n"], r["m"], r["d"]) == shape)
+        rows.append((*k2_src, shape, *k2_at(shape, "rbf"), launches, mo))
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "shape": list(shape),
          "dtype": "float32", "kind": c.get("kind"), "path": c.get("path"), "launches": launches,
@@ -1182,7 +1378,7 @@ def main() -> int:
         ("k2", lambda: phase_k2(gen)), ("bo_step", phase_bo_step),
         ("bo_loop", phase_bo_loop), ("mc_step", phase_mc_step), ("qnei_loop", phase_qnei_loop),
         ("nuts_step", phase_nuts_step), ("nuts", phase_nuts),
-        ("saasbo_loop", phase_saasbo_loop),
+        ("saasbo_loop", phase_saasbo_loop), ("mo_step", phase_mo_step), ("mo_loop", phase_mo_loop),
     )
     for name, fn in phases:
         try:
@@ -1201,7 +1397,7 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     emit(kernels_line(results["k1"], results["k2"], results["bo_loop"], results["qnei_loop"],
-                      results["nuts"], results["saasbo_loop"]))
+                      results["nuts"], results["saasbo_loop"], results["mo_loop"]))
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

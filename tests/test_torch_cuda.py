@@ -23,7 +23,11 @@ K2_SHAPES = [(2, 35, 35, 2, True), (1, 35, 35, 2, True), (1, 300, 257, 7, False)
              (1, 64, 48, 8, False), (3, 20, 33, 20, False),
              # the config-2 qLogNEI loop's launches, all on the tiled path
              (2, 76, 76, 6, True), (1, 76, 76, 6, True), (64, 76, 80, 6, False),
-             (64, 80, 80, 6, False), (6, 76, 80, 6, False), (6, 80, 80, 6, False)]
+             (64, 80, 80, 6, False), (6, 76, 80, 6, False), (6, 80, 80, 6, False),
+             # the config-4 qLogNEHVI loop's: the fit's and train_chol's 90
+             # padded rows, the joint posterior of 90 baseline rows and 1-4 picks
+             (2, 90, 90, 2, True), (1, 90, 90, 2, True), (32, 90, 91, 2, False),
+             (4, 90, 94, 2, False), (4, 94, 94, 2, False)]
 
 
 @pytest.fixture
@@ -305,3 +309,76 @@ def test_saasbo_step_on_the_card_matches_the_cpu(dev):
     acqf = make_acqf("LogEI", model_c, best_f=torch.tensor(float(Y[:n].max())))
     assert abs(float(acqf(cg[None])) - vc) <= 1e-3 * max(1.0, abs(vc))
     torch.testing.assert_close(cg[:, :2], cc[:, :2], atol=2e-2, rtol=0)
+
+
+def test_mo_loop_runs_on_the_card_through_k2(dev):
+    """Two qLogNEHVI iterations at config 4's widths (d = 2, m = 2, q = 4
+    sequential greedy, capacity 18) on the card: K2 carries every kernel
+    matrix, and the front improves on the initial design's."""
+    from botorch_tpu_torch.mo_loop import MOBOState, observed_hypervolume, run_mo_bo_loop
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.test_functions.multi_objective import BraninCurrin
+
+    prob = BraninCurrin(negate=True)
+    kernel_matrix_cuda.launches = 0
+    st = run_mo_bo_loop(prob, d=2, m=2, ref_point=prob.ref_point, n_init=10, iterations=2, q=4,
+                        num_restarts=2, raw_samples=16, fit_restarts=2, fit_maxiter=5,
+                        acq_maxiter=5, mc_samples=16)
+    X = st.X[: st.n]
+    assert st.n == 18 and X.is_cuda and torch.isfinite(st.Y).all()
+    assert bool(((X >= 0) & (X <= 1)).all()) and kernel_matrix_cuda.launches > 0
+    hv0 = observed_hypervolume(MOBOState(X=st.X, Y=st.Y, n=10), prob.ref_point)
+    assert observed_hypervolume(st, prob.ref_point) >= hv0
+
+
+def test_qlognehvi_on_the_card_matches_the_cpu(dev):
+    """Config 4's last pick on the card and on the CPU: qLogNEHVI over 90
+    padded baseline rows (10 BraninCurrin points), one candidate and 3
+    pending points, 32 MC samples, for the 32 raw candidate sets of an
+    ascent's start. Values within 1e-3 relative, gradients within 2e-2 of
+    their largest entry: a float32 joint posterior of 94 points, factored
+    by cuSOLVER and by LAPACK, whose 80 padded rows (all at the origin)
+    make its covariance near-singular. On the CPU the float32 values of
+    this input lie up to 6.5e-4 relative (gradients 2.2e-4 of the largest
+    entry) from their float64 values."""
+    from botorch_tpu_torch.acquisition.monte_carlo import draw_fresh_base_samples
+    from botorch_tpu_torch.acquisition.multi_objective import (
+        _subset_masks,
+        make_in_graph_nehvi_cells,
+        qLogNoisyExpectedHypervolumeImprovement,
+    )
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.mo_loop import append_mo_observations, init_mo_state
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.multi_objective import BraninCurrin
+
+    prob = BraninCurrin(negate=True)
+    state, X0 = init_mo_state(10, 2, 2, 90, seed=0, device="cpu")
+    state = append_mo_observations(state, X0, prob(X0))
+    base = draw_fresh_base_samples(94, 2, 32, make_generator(3, "cpu"), seed=23)
+    rng = np.random.default_rng(0)
+    pending = torch.tensor(rng.uniform(size=(3, 2)), dtype=torch.float32)
+    Xq = torch.tensor(rng.uniform(size=(32, 1, 2)), dtype=torch.float32)
+    mask = torch.arange(90) < 10
+    params = make_gp(state.X, state.Y, mask=mask, device="cpu").params.map(
+        lambda t: t + 0.1 * torch.randn(t.shape, generator=torch.Generator().manual_seed(1)))
+    out = {}
+    for d in ("cpu", dev):
+        model = make_gp(state.X, state.Y, mask=mask, device=d, params=params)
+        cache = model.train_chol()
+        ref = prob.ref_point.to(d)
+        lo, up = make_in_graph_nehvi_cells(model, cache, model.X, base[:, :90].to(d), ref,
+                                           baseline_mask=mask.to(d))
+        masks, signs = _subset_masks(4, device=d)
+        acqf = qLogNoisyExpectedHypervolumeImprovement(
+            model=model, cache=cache, base_samples=base.to(d), X_baseline=model.X, ref_point=ref,
+            masks=masks, signs=signs, baseline_mask=mask.to(d), cell_lower=lo, cell_upper=up,
+            X_pending=pending.to(d))
+        x = Xq.to(d).requires_grad_(True)
+        v = acqf(x)
+        (g,) = torch.autograd.grad(v.sum(), x)
+        out[str(d)] = (v.detach().cpu(), g.cpu())
+    (vc, gc), (vg, gg) = out["cpu"], out[str(dev)]
+    assert torch.isfinite(vg).all() and torch.isfinite(gg).all()
+    torch.testing.assert_close(vg, vc, rtol=1e-3, atol=0)
+    torch.testing.assert_close(gg, gc, rtol=0, atol=2e-2 * float(gc.abs().max()))

@@ -82,7 +82,8 @@ def test_sources_exist():
         "models/gp.py", "posteriors/gaussian.py", "acquisition/analytic.py",
         "optim/optimize.py", "sampling/qmc.py", "sampling/samplers.py",
         "acquisition/monte_carlo.py", "sampling/nuts.py", "models/fully_bayesian.py",
-        "posteriors/fully_bayesian.py", "saasbo.py",
+        "posteriors/fully_bayesian.py", "saasbo.py", "utils/multi_objective.py",
+        "test_functions/multi_objective.py", "acquisition/multi_objective.py", "mo_loop.py",
     ):
         assert mod in names, mod
     csrc = {p.name for p in (ROOT / "botorch_tpu_torch" / "csrc").glob("*.cu")}
@@ -167,6 +168,26 @@ def test_saasbo_slice_defaults_to_cuda():
         run_saasbo(lambda X: X.sum(-1), d=2, n_init=3, iterations=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         IndexSampler().indices(4)
+
+
+def test_mo_slice_defaults_to_cuda():
+    """The multi-objective loop's entry points run on CUDA unless given a
+    device, and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a card")
+    from botorch_tpu_torch.mo_loop import init_mo_state, mo_bo_step, run_mo_bo_loop
+    from botorch_tpu_torch.sampling.sobol import sobol_table
+    from botorch_tpu_torch.test_functions.multi_objective import BraninCurrin
+
+    prob = BraninCurrin(negate=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_mo_bo_loop(prob, d=2, m=2, ref_point=prob.ref_point, n_init=3, iterations=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_mo_state(3, 2, 2, 5)
+    state, _ = init_mo_state(3, 2, 2, 5, device="cpu")
+    assert state.X.device.type == "cpu" and state.Y.shape == (5, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mo_bo_step(state, sobol_table(2, device="cpu"), prob.ref_point)
 
 
 def test_mc_acquisition_refuses_fully_bayesian_models():
