@@ -7,6 +7,8 @@ dim crosses with them). NUTS state crosses the same way: the adaptation
 flat-vector helpers keep `jax.flatten_util.ravel_pytree`'s order of the
 JAX `GPParams` fields (mean, raw_lengthscale, raw_outputscale,
 raw_noise), with any leading batch dims kept in front of the flat axis.
+An SVGP crosses as `{field: numpy array}` of its tensor fields, and a
+TuRBO state as the arrays of its five tensor fields.
 """
 
 from __future__ import annotations
@@ -77,3 +79,40 @@ def saas_draws_from_numpy(z_samples, dtype=torch.float32, device="cpu") -> Tenso
     if z.ndim != 2:
         raise ValueError(f"SAAS draws are (S, k), got shape {tuple(z.shape)}")
     return z
+
+
+def svgp_from_numpy(arrays: dict, kernel: str = "matern52", learn_inducing: bool = True,
+                    dtype=torch.float32, device="cpu"):
+    """`SVGP` from `{field: numpy array}` of its tensor fields
+    (`SVGP.FIELDS`, the JAX `SVGP`'s field names)."""
+    from botorch_tpu_torch.models.approximate_gp import SVGP
+
+    return SVGP(
+        **{f: torch.as_tensor(np.array(arrays[f]), dtype=dtype, device=device)
+           for f in SVGP.FIELDS},
+        kernel=kernel, learn_inducing=learn_inducing,
+    )
+
+
+def svgp_to_numpy(model) -> dict:
+    """`{field: numpy array}` of an `SVGP`'s tensor fields."""
+    return {f: getattr(model, f).detach().cpu().numpy() for f in type(model).FIELDS}
+
+
+TURBO_STATE_FIELDS = ("length", "success_counter", "failure_counter", "best_value",
+                      "restart_triggered")
+
+
+def turbo_state_from_numpy(arrays: dict, dtype=torch.float32, device="cpu", **kwargs):
+    """`TurboState` from `{field: numpy array}` of its five tensor fields;
+    `kwargs` sets its static fields (`length_min`, `success_streak`, ...)."""
+    from botorch_tpu_torch.optim.turbo import TurboState
+
+    dtypes = {"success_counter": torch.int32, "failure_counter": torch.int32,
+              "restart_triggered": torch.bool}
+    return TurboState(
+        **{f: torch.as_tensor(np.array(arrays[f]), dtype=dtypes.get(f, dtype),
+                              device=device).reshape(())
+           for f in TURBO_STATE_FIELDS},
+        **kwargs,
+    )

@@ -1,5 +1,5 @@
 r"""Synthetic test problems (counterpart of
-`botorch_tpu/test_functions/synthetic.py`): Branin and Hartmann.
+`botorch_tpu/test_functions/synthetic.py`): Branin, Hartmann and Ackley.
 
 These are MINIMIZATION problems, as in the reference; BO loops maximize
 `-f` (`negate=True`). `__call__` takes `X (..., d)` in the problem's own
@@ -112,3 +112,20 @@ class Hartmann(SyntheticTestFunction):
         if self.dim == 4:
             return (1.1 - torch.sum(alpha * torch.exp(-inner), dim=-1)) / 0.839
         return -torch.sum(alpha * torch.exp(-inner), dim=-1)
+
+
+class Ackley(SyntheticTestFunction):
+    """Ackley (any d); min 0 at the origin, box [-32.768, 32.768]^d."""
+
+    def __init__(self, dim: int = 2, **kw):
+        self.dim = dim
+        self._bounds = [(-32.768, 32.768)] * dim
+        self._optimal_value = 0.0
+        self._optimizers = [tuple(0.0 for _ in range(dim))]
+        super().__init__(**kw)
+
+    def evaluate_true(self, X):
+        a, b, c = 20.0, 0.2, 2 * math.pi
+        s1 = torch.sqrt(torch.mean(torch.square(X), dim=-1))
+        s2 = torch.mean(torch.cos(c * X), dim=-1)
+        return -a * torch.exp(-b * s1) - torch.exp(s2) + a + math.e

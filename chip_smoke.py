@@ -1,6 +1,6 @@
 """On-card smoke test of botorch_tpu_torch: build, kernel checks, the
-config-1 (LogEI), config-2 (qLogNEI), config-3 (SAASBO) and config-4
-(qLogNEHVI, m = 2) loops.
+config-1 (LogEI), config-2 (qLogNEI), config-3 (SAASBO), config-4
+(qLogNEHVI, m = 2) and config-5 (TuRBO, exact GP and SVGP) loops.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -21,8 +21,10 @@ Phases, each printing one JSON line:
      at the config-2 shapes (rbf) also both of K2's paths timed on the same
      inputs (`narrow_ms`, `tiled_ms`; `path` is the one `k2_plan` picks),
      and the same at config 4's shapes (rbf, d=2, 90 padded rows and
-     joint posteriors of 91-94 points); and the device launches of the
-     op's forward and backward;
+     joint posteriors of 91-94 points), and at every shape config 5's
+     benches and loops launch (float32, both paths timed); and the device
+     launches of the op's
+     forward and backward;
   4. bo_step: one config-1 BO step on the card against the same step on
      the CPU (plain versions), with the same restart starts and initial
      conditions;
@@ -52,8 +54,9 @@ Phases, each printing one JSON line:
      restarts, 512 raw samples, 50 iterations, seed 0) through
      `run_saasbo`, all 16 iterations at the config's capacity and
      budgets, with K1's and K2's launches by shape, the final regret
-     beside the initial design's, the active dims' median lengthscales
-     beside the distractors', and one profiled step;
+     beside the initial design's, and the active dims' median
+     lengthscales beside the distractors' (its profiled step, 90-150 s
+     more, runs in `tools/chip_phases.py saasbo_loop_profiled`);
  11. mo_step: one config-4 qLogNEHVI step (10 BraninCurrin points in 90
      rows, q=4 sequential greedy) on the card against the same step on the
      CPU, from the same fit starts, initial conditions of each pick and
@@ -67,10 +70,28 @@ Phases, each printing one JSON line:
      evaluations/s, the observed hypervolume and its fraction of `max_hv`
      beside the initial design's, K1's and K2's launches (K2's by shape and
      path; K1 launches none, the 90 padded rows being above its n <= 64),
-     and one profiled step at the last history size.
+     and one profiled step at the last history size;
+ 13. turbo_step: one config-5 `generate_turbo_candidates` on the card
+     against the same step on the CPU from the same draws, for
+     `bench.py`'s exact GP (n=2048, d=20, 4096 candidates, q=64) and an
+     SVGP of its 16384 points (256 inducing points, 2048 candidates): the
+     perturbation set, the paths' values and the picks;
+ 14. turbo_exact: `bench.py:272-292`'s Thompson-sampling throughput
+     (candidates/s over 10 calls), then `run_turbo(model_type="exact")` on
+     negated Ackley-4 (n_init=10, 15 iterations, q=2, 256 candidates,
+     fit_maxiter=25, seed 0): the best value beside the initial design's,
+     K1's launches by shape (the fit's (2, 40)) and K2's by shape and path;
+ 15. turbo_svgp: `bench.py:294-331`'s ELBO steps/s (`make_svgp`, 256
+     inducing points, 300 Adam steps at batch 512 on 16384 points) and
+     candidates/s (2048 candidates, q=64, 10 calls), then
+     `run_turbo(model_type="svgp")` on -sum((x - 0.4)^2), d=20, 16384
+     Sobol points, 4 iterations of q=64, 2048 candidates, 300 steps: the
+     best value beside the initial design's, K2's launches by shape and
+     path, the launches of one Adam step, and one profiled iteration.
 The k1 phase also holds K1 at config 3's NUTS shapes with one matrix of
 the batch not positive definite (NaN for it, the others right, no raise).
-The k1 and k2 phases also carry the card's SM clock and power, sampled
+Every phase's line carries its wall seconds (`phase_s`). The k1 and k2
+phases also carry the card's SM clock and power, sampled
 by `nvidia-smi` while they run, and `floor_ms`: the device time of `add_`
 on a one-element tensor, the shortest kernel the card runs. Then the
 per-kernel summary line, the card's name and power limit, and the final
@@ -125,6 +146,25 @@ HV_FRACTION_BAR = 0.90
 # at the CPU's own pick (relative, as the SAASBO step test holds it)
 MO_STEP_TOL = 2e-2
 MO_PICK_ACQ_TOL = 1e-3
+# config 5 (`bench.py:272-331`): TuRBO in d = 20. Thompson-sampling
+# throughput on an unfitted exact GP of 2048 points (4096 candidates, q =
+# 64, 512 features); an SVGP of 16384 points with 256 inducing points, 300
+# Adam steps at batch 512, 2048 candidates; 10 generation calls each
+CONFIG5 = dict(d=20, exact_n=2048, svgp_n=16384, inducing=256, svgp_steps=300, batch=512,
+               q=64, exact_candidates=4096, svgp_candidates=2048, gen_calls=10)
+# the closed loops: exact on negated Ackley-4 at the reference test's
+# budget (capacity 40, so the MAP fit launches K1 at (2, 40)); SVGP on
+# -sum((x - 0.4)^2) from 16384 Sobol points, 4 iterations of q = 64
+TURBO_EXACT_CFG = dict(d=4, n_init=10, iterations=15, q=2, n_candidates=256, fit_maxiter=25)
+TURBO_SVGP_CFG = dict(d=CONFIG5["d"], n_init=CONFIG5["svgp_n"], iterations=4, q=CONFIG5["q"],
+                      n_candidates=CONFIG5["svgp_candidates"], model_type="svgp",
+                      svgp_inducing=CONFIG5["inducing"], svgp_steps=CONFIG5["svgp_steps"])
+# card against CPU in one TuRBO step from the same draws: max |path value
+# difference| / max(1, max |value|). On the CPU float32 lies 5.7e-5 (exact
+# GP, a solve against a 2048-point covariance of condition ~1e4) and 9e-6
+# (SVGP) from float64 at these inputs; a draw whose top two values are
+# further apart than twice this must pick the same candidate
+TURBO_STEP_TOL = 5e-4
 # `bench.py:76-99`'s NUTS throughput shape
 NUTS_BENCH = dict(n=24, d=10, chains=64, num_warmup=128, num_samples=128, thinning=8)
 NUTS_ACCEPT = (0.5, 0.98)
@@ -395,9 +435,10 @@ def k1_case(B, n, dtype, gen, floor):
 
 # the last two fill every SM with more than one matrix's block
 # (8, 26) and (64, 24): config 3's NUTS potential and `bench.py`'s NUTS
-# throughput shape
+# throughput shape; (2, 40): config 5's exact TuRBO fit
 K1_SHAPES = ((7, 13), (32, 24), (8, 64), (2, 35)) + tuple(
-    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)) + ((200, 35), (200, 64), (8, 26), (64, 24))
+    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)) + ((200, 35), (200, 64), (8, 26), (64, 24),
+                                                            (2, 40))
 
 
 def k1_nan_member_case(B, n, gen) -> dict:
@@ -589,6 +630,21 @@ CONFIG3_K2 = ((8, 26, 26, 8, "shared"), (16, 26, 26, 8, "shared"), (8192, 26, 1,
 # and the 4 restarts of pick 3
 CONFIG4_K2 = ((2, 90, 90, 2, "shared"), (1, 90, 90, 2, "shared"), (32, 90, 91, 2, None),
               (32, 91, 91, 2, "batched"), (4, 90, 94, 2, None), (4, 94, 94, 2, "batched"))
+# config 5's: the SVGP's (d = 20, one unbatched problem each) Kzz (256 x
+# 256), Kzx (256 x 512) and Kxx (512 x 512) of a minibatch, its paths' Kxz
+# at 2048 candidates and the greedy pivots' column over the loop's four
+# history sizes (16384 + 64 i, 1), matern52; the exact GP's paths at 4096
+# candidates (4096 x 2048) and its train covariance (2048 x 2048), rbf;
+# the exact Ackley-4 loop's (rbf, d = 4): its fit's covariance of 40
+# padded rows for 2 restarts and `train_chol`'s, and its paths' k(Xc, X)
+# at 256 candidates
+CONFIG5_K2 = (((1, 256, 256, 20, "shared"), "matern52"), ((1, 256, 512, 20, None), "matern52"),
+              ((1, 512, 512, 20, "shared"), "matern52"), ((1, 2048, 256, 20, None), "matern52"),
+              ((1, 16384, 1, 20, None), "matern52"), ((1, 16448, 1, 20, None), "matern52"),
+              ((1, 16512, 1, 20, None), "matern52"), ((1, 16576, 1, 20, None), "matern52"),
+              ((1, 4096, 2048, 20, None), "rbf"), ((1, 2048, 2048, 20, "shared"), "rbf"),
+              ((2, 40, 40, 4, "shared"), "rbf"), ((1, 40, 40, 4, "shared"), "rbf"),
+              ((1, 256, 40, 4, None), "rbf"))
 K2_SHAPES = ((2, 35, 35, 2, "shared"), (1, 35, 35, 2, "shared"), (1, 300, 257, 7, None),
              (6, 35, 1, 2, None), (6, 1, 1, 2, None), (64, 35, 1, 2, None), (64, 1, 1, 2, None),
              (80, 35, 1, 2, None), (80, 1, 1, 2, None), (1, 64, 48, 8, None),
@@ -627,6 +683,13 @@ def k2_op_launches() -> dict:
                                       (x_full,))}
 
 
+def k2_config_cases(table, dtypes, gen, floor) -> list:
+    """K2's cases at a config's ((B, n, m, d, coincident), kind) table in
+    each of `dtypes`, both paths timed."""
+    return [k2_case(*shape, kind, dtype, gen, floor, both_paths=True)
+            for dtype in dtypes for shape, kind in table]
+
+
 def phase_k2(gen):
     import torch
 
@@ -640,8 +703,9 @@ def phase_k2(gen):
                     cases.append(k2_case(*shape, kind, dtype, gen, floor, both_paths=both))
             for shape in CONFIG3_K2:
                 cases.append(k2_case(*shape, "matern52", dtype, gen, floor))
-            for shape in CONFIG4_K2:
-                cases.append(k2_case(*shape, "rbf", dtype, gen, floor, both_paths=True))
+        cases += k2_config_cases([(s, "rbf") for s in CONFIG4_K2],
+                                 (torch.float32, torch.float64), gen, floor)
+        cases += k2_config_cases(CONFIG5_K2, (torch.float32,), gen, floor)
     return {"phase": "k2", "ok": all(c["ok"] for c in cases), "floor_ms": floor,
             "clocks": clocks.summary(), "op_launches": k2_op_launches(), "cases": cases}
 
@@ -948,13 +1012,15 @@ def phase_nuts():
     }
 
 
-def phase_saasbo_loop():
+def phase_saasbo_loop(profile: bool = False):
     """Config 3 through `run_saasbo`, seed 0, at `bench.py`'s budgets and
     capacity (26 rows), with K1's and K2's launches by shape over
     the run, the NUTS counters, the final regret beside the initial
     design's, the SAAS dimension check of the JAX package's test (the
     median of the two active dims' median lengthscales below the
-    distractors'), and one profiled step."""
+    distractors'), and with `profile` one profiled step (a timed step and
+    a profiled one, 90-150 s on top of the loop: `tools/chip_phases.py
+    saasbo_loop_profiled`)."""
     import numpy as np
     import torch
 
@@ -1010,7 +1076,8 @@ def phase_saasbo_loop():
                  "host_reads_per_transition": nuts_transition.host_reads / max(steps, 1)},
         "finite": finite, "in_box": in_box,
     }
-    out["last_step"] = saasbo_step_breakdown(res)
+    if profile:
+        out["last_step"] = saasbo_step_breakdown(res)
     return out
 
 
@@ -1201,6 +1268,340 @@ def phase_mo_loop():
     }
 
 
+# ---------------------------------------------------------------------- #
+def _svgp_bench_data():
+    """`bench.py:294-331`'s SVGP data (config 5): 16384 uniform points in
+    d = 20, `Y = -sum((X - 0.4)^2) + 0.01 eps`, from numpy seed 0, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    n, d = CONFIG5["svgp_n"], CONFIG5["d"]
+    X = rng.uniform(size=(n, d)).astype(np.float32)
+    Y = (-np.sum((X - 0.4) ** 2, axis=-1) + 0.01 * rng.normal(size=n)).astype(np.float32)
+    return torch.tensor(X, device="cuda"), torch.tensor(Y, device="cuda")
+
+
+def _exact_bench_model():
+    """`bench.py:272-292`'s exact GP (config 5): 2048 uniform points in
+    d = 20 and standard-normal Y from numpy seed 0, `make_gp` unfitted
+    (rbf), on the card."""
+    import numpy as np
+
+    from botorch_tpu_torch.models.gp import make_gp
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(CONFIG5["exact_n"], CONFIG5["d"])).astype(np.float32)
+    Y = rng.normal(size=CONFIG5["exact_n"]).astype(np.float32)
+    return make_gp(X, Y[:, None])
+
+
+def _turbo_draws(model, n_candidates: int, q: int, num_features: int, seed: int):
+    """One TuRBO step's draws, made on the CPU in float64 and cast to the
+    model's dtype, so the card and the CPU see the same numbers."""
+    import torch
+
+    from botorch_tpu_torch.models.approximate_gp import SVGP
+    from botorch_tpu_torch.optim.turbo import TurboDraws
+    from botorch_tpu_torch.sampling.pathwise import PathDraws, draw_path_draws
+
+    g = torch.Generator().manual_seed(seed)
+    d = model.X.shape[-1]
+    k = model.num_inducing if isinstance(model, SVGP) else model.num_train
+    kw = dict(generator=g, dtype=torch.float64)
+    u, mask_u = torch.rand(n_candidates, d, **kw), torch.rand(n_candidates, d, **kw)
+    forced = torch.randint(0, d, (n_candidates,), generator=g)
+    ts = draw_path_draws(g, model.kernel, d, q, num_features, k, torch.float64)
+    cast = lambda t: None if t is None else t.to(model.X.dtype)  # noqa: E731
+    return TurboDraws(cast(u), cast(mask_u), forced, PathDraws(*(cast(t) for t in ts)))
+
+
+def _on(draws, device):
+    """`TurboDraws` with every tensor moved to `device`."""
+    from botorch_tpu_torch.optim.turbo import TurboDraws
+    from botorch_tpu_torch.sampling.pathwise import PathDraws
+
+    ts = PathDraws(*(None if t is None else t.to(device) for t in draws.ts))
+    return TurboDraws(draws.u.to(device), draws.mask_u.to(device), draws.forced.to(device), ts)
+
+
+def turbo_step_case(model_cuda, model_cpu, center, n_candidates, q, num_features):
+    """One `generate_turbo_candidates` on the card and on the CPU with the
+    same draws: the perturbation set, the paths' values on it and the picks,
+    each side's largest difference from the other."""
+    import torch
+
+    from botorch_tpu_torch.optim.turbo import (
+        generate_turbo_candidates, turbo_candidate_set, turbo_init,
+    )
+    from botorch_tpu_torch.sampling.pathwise import draw_matheron_paths
+
+    draws = _turbo_draws(model_cpu, n_candidates, q, num_features, seed=11)
+    out = {}
+    for dev, model in (("cuda", model_cuda), ("cpu", model_cpu)):
+        st = turbo_init(best_value=0.0, device=dev)
+        dr = _on(draws, dev)
+        c = center.to(dev)
+        Xc = turbo_candidate_set(model, st, c, n_candidates=n_candidates, draws=dr)
+        vals = draw_matheron_paths(model, num_paths=q, num_features=num_features, draws=dr.ts)(Xc)
+        cand = generate_turbo_candidates(model, st, c, n_candidates=n_candidates, q=q,
+                                         num_features=num_features, draws=dr)
+        out[dev] = (Xc.cpu(), vals.cpu(), cand.cpu())
+    (Xg, vg, cg), (Xh, vh, ch) = out["cuda"], out["cpu"]
+    scale = max(1.0, float(vh.abs().max()))
+    value_err = max_err(vg, vh) / scale
+    top = vh.double().sort(-1).values
+    # a draw whose CPU margin exceeds twice the value tolerance has one argmax
+    clear = (top[:, -1] - top[:, -2]) > 2 * TURBO_STEP_TOL * scale
+    # the same row of the perturbation set, which each side rounds in its
+    # own order (`lb + (ub - lb) u`): within one float32 ulp
+    same = (cg - ch).abs().amax(-1) <= 1e-6
+    ok = (max_err(Xg, Xh) <= 1e-6 and value_err <= TURBO_STEP_TOL
+          and bool(same[clear].all()) and bool(torch.isfinite(vg).all()))
+    return {"ok": bool(ok), "n_candidates": n_candidates, "q": q, "num_features": num_features,
+            "candidate_set_max_abs_err": max_err(Xg, Xh), "value_rel_err": value_err,
+            "value_tol": TURBO_STEP_TOL, "value_abs_max": scale,
+            "picks_same": int(same.sum()), "picks_clear": int(clear.sum()),
+            "pick_max_abs_err": max_err(cg, ch),
+            "values_head": vg[0, :4].tolist(), "picks_head": cg[0].tolist()}
+
+
+def phase_turbo_step():
+    """One config-5 TuRBO step on the card against the same step on the
+    CPU, from the same draws: for `bench.py`'s exact GP (n = 2048, d = 20,
+    rbf, 4096 candidates, q = 64, 512 features) and for an SVGP of its
+    16384 points (256 inducing points, 30 Adam steps on the card, carried
+    to the CPU; 2048 candidates, q = 64, 512 features)."""
+    import torch
+
+    from botorch_tpu_torch.fit import _to_device
+    from botorch_tpu_torch.models.approximate_gp import fit_svgp, make_svgp
+    from botorch_tpu_torch.settings import make_generator
+
+    exact = _exact_bench_model()
+    X6, Y6 = _svgp_bench_data()
+    svgp = fit_svgp(make_svgp(X6, Y6, num_inducing=CONFIG5["inducing"]),
+                    make_generator(0, "cuda"), steps=30, batch_size=CONFIG5["batch"])
+    cases = {
+        "exact": turbo_step_case(exact, _to_device(exact, torch.device("cpu")), exact.X[0].cpu(),
+                                 CONFIG5["exact_candidates"], CONFIG5["q"], 512),
+        "svgp": turbo_step_case(svgp, svgp.to("cpu"), X6[int(Y6.argmax())].cpu(),
+                                CONFIG5["svgp_candidates"], CONFIG5["q"], 512),
+    }
+    return {"phase": "turbo_step", "ok": all(c["ok"] for c in cases.values()), **cases}
+
+
+def _timed(fn, reps: int) -> tuple[float, bool]:
+    """Seconds per call of `fn(seed)` over `reps` calls after one warm
+    call, ended by a synchronize, and whether every call's output was
+    finite."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    finite = True
+    t0 = time.perf_counter()
+    for i in range(reps):
+        out = fn(1 + i)
+        finite &= bool(torch.isfinite(out).all())
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps, finite
+
+
+def phase_turbo_exact():
+    """Config 5's exact-GP half: `bench.py:272-292`'s Thompson-sampling
+    throughput (10 calls of `generate_turbo_candidates` on its unfitted
+    n = 2048, d = 20 rbf GP: 4096 candidates, q = 64, 512 features), then
+    `run_turbo(model_type="exact")` on negated Ackley-4 at the reference
+    test's budget (n_init 10, 15 iterations, q = 2, 256 candidates,
+    fit_maxiter 25, capacity 40), seed 0: the best value beside the initial
+    design's, K1's launches by shape (the MAP fit's (2, 40)) and K2's by
+    shape and path."""
+    import torch
+
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.optim.turbo import generate_turbo_candidates, run_turbo, turbo_init
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.synthetic import Ackley
+    from botorch_tpu_torch.utils.transforms import unnormalize
+
+    model = _exact_bench_model()
+    st = turbo_init(best_value=model.Y_loc[0] + model.Y_scale[0] * model.Y.max())
+    q, reps = CONFIG5["q"], CONFIG5["gen_calls"]
+
+    def gen(seed):
+        return generate_turbo_candidates(model, st, model.X[0], make_generator(seed, "cuda"),
+                                         n_candidates=CONFIG5["exact_candidates"], q=q,
+                                         num_features=512)
+
+    _reset_counts()
+    run = {}
+    run["bench_shapes"] = k2_shapes_of(lambda: run.update(s=_timed(gen, reps)))
+    gen_s, gen_finite = run["s"]
+    prob = Ackley(dim=4, negate=True)
+    bounds = prob.bounds.cuda()
+
+    def objective(X):
+        return prob(unnormalize(X, bounds))
+
+    cfg = TURBO_EXACT_CFG
+    run_turbo(objective, seed=1, **dict(cfg, iterations=1))  # warm-up
+    torch.cuda.synchronize()
+    qd_cuda.launches = kernel_matrix_cuda.launches = 0
+    t0 = time.perf_counter()
+    k1_shapes = k1_shapes_of(lambda: run.update(
+        k2=k2_shapes_of(lambda: run.update(xy=run_turbo(objective, seed=0, **cfg)))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    X, Y = run["xy"]
+    n0, cap = cfg["n_init"], cfg["n_init"] + cfg["iterations"] * cfg["q"]
+    best, best0 = float(Y.max()), float(Y[:n0].max())
+    main_k1 = sum(r["launches"] for r in k1_shapes if (r["B"], r["n"]) == (2, cap))
+    finite = bool(torch.isfinite(Y).all() and torch.isfinite(X).all())
+    in_box = bool(((X >= 0) & (X <= 1)).all())
+    ok = (finite and gen_finite and in_box and X.is_cuda and X.shape == (cap, 4)
+          and best > best0 and main_k1 > 0 and kernel_matrix_cuda.launches > 0)
+    return {
+        "phase": "turbo_exact", "ok": bool(ok),
+        "gen_calls": reps, "gen_ms": 1e3 * gen_s, "candidates_per_s": q / gen_s,
+        "gen_kernel_matrix_shapes": run["bench_shapes"],
+        "loop_wall_s": wall, "iterations": cfg["iterations"], "capacity": cap,
+        "iters_per_s": cfg["iterations"] / wall, "best_value": best,
+        "initial_design_best": best0, "optimum": prob.optimal_value,
+        "launches": {"mvn_quad_logdet": qd_cuda.launches,
+                     "kernel_matrix": kernel_matrix_cuda.launches},
+        "mvn_quad_logdet_shapes": k1_shapes, "kernel_matrix_shapes": run["k2"],
+        "finite": finite, "in_box": in_box,
+    }
+
+
+def adam_step_launches(model, batch: int) -> dict:
+    """Device launches of one SVGP loss evaluation without gradient and of
+    one whole Adam step (loss, backward through K2's plain version, update)."""
+    import torch
+
+    from botorch_tpu_torch.models.approximate_gp import fit_svgp
+
+    idx = torch.randint(0, model.Y.shape[0], (1, batch), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def loss():
+        with torch.no_grad():
+            return model.elbo(idx[0]) + model.log_prior()
+
+    def step():
+        return fit_svgp(model, steps=1, batch_size=batch, batch_indices=idx)
+
+    step()  # warm-up: a profile can miss the first launches of a new call
+    return {name: sum(c for c, _ in device_profile(fn).values())
+            for name, fn in (("loss", loss), ("adam_step", step))}
+
+
+def phase_turbo_svgp():
+    """Config 5's SVGP half, seed 0: `bench.py:294-331`'s ELBO throughput
+    (`make_svgp` with 256 inducing points by greedy variance reduction,
+    then 300 Adam steps at batch 512, on its 16384-point data set) and
+    Thompson-sampling throughput (10 calls of `generate_turbo_candidates`:
+    2048 candidates, q = 64); then the closed loop `run_turbo(model_type=
+    "svgp")` on -sum((x - 0.4)^2), d = 20, 16384 Sobol points, 4
+    iterations of q = 64, 2048 candidates, 256 inducing points, 300 steps:
+    the best value beside the initial design's, K2's launches by shape and
+    path in the loop (`launches`, `kernel_matrix_shapes`) and in the
+    benches (`bench_launches`, `bench_kernel_matrix_shapes`), each counted
+    from 0, the launches of one Adam step, and one profiled iteration at
+    the loop's last history size."""
+    import torch
+
+    from botorch_tpu_torch.models.approximate_gp import fit_svgp, make_svgp
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.optim.turbo import generate_turbo_candidates, run_turbo, turbo_init
+    from botorch_tpu_torch.settings import make_generator
+
+    X6, Y6 = _svgp_bench_data()
+    m, steps, batch, q = (CONFIG5[k] for k in ("inducing", "svgp_steps", "batch", "q"))
+
+    def fit(seed, steps=steps):
+        return fit_svgp(make_svgp(X6, Y6, num_inducing=m), make_generator(seed, "cuda"),
+                        steps=steps, batch_size=batch)
+
+    fit(0, steps=5)  # warm-up
+    torch.cuda.synchronize()
+    run = {}
+
+    def benches():
+        t0 = time.perf_counter()
+        run["svgp"] = fit(1)
+        torch.cuda.synchronize()
+        run["fit_s"] = time.perf_counter() - t0
+        st = turbo_init(best_value=Y6.max())
+        center = X6[int(Y6.argmax())]
+        run["gen_s"], run["gen_finite"] = _timed(lambda seed: generate_turbo_candidates(
+            run["svgp"], st, center, make_generator(seed, "cuda"),
+            n_candidates=CONFIG5["svgp_candidates"], q=q), CONFIG5["gen_calls"])
+
+    def objective(X):
+        return -torch.sum((X - 0.4) ** 2, dim=-1)
+
+    cfg = TURBO_SVGP_CFG
+
+    def loop():
+        t0 = time.perf_counter()
+        run["xy"] = run_turbo(objective, seed=0, **cfg)
+        torch.cuda.synchronize()
+        run["loop_s"] = time.perf_counter() - t0
+
+    # each path's launches alone: the counts go to 0 just before it
+    _reset_counts()
+    bench_shapes = k2_shapes_of(benches)
+    bench_launches = {"mvn_quad_logdet": qd_cuda.launches,
+                      "kernel_matrix": kernel_matrix_cuda.launches}
+    _reset_counts()
+    k2_shapes = k2_shapes_of(loop)
+    X, Y = run["xy"]
+    n0 = cfg["n_init"]
+    best, best0 = float(Y.max()), float(Y[:n0].max())
+    by_path = {}
+    for row in k2_shapes:
+        by_path[row["path"]] = by_path.get(row["path"], 0) + row["launches"]
+    finite = bool(torch.isfinite(Y).all() and torch.isfinite(X).all())
+    in_box = bool(((X >= 0) & (X <= 1)).all())
+    svgp = run["svgp"]
+    elbo = float(svgp.elbo() + svgp.log_prior())
+    ok = (finite and run["gen_finite"] and in_box and X.is_cuda
+          and X.shape == (n0 + cfg["iterations"] * q, CONFIG5["d"])
+          and best > best0 and kernel_matrix_cuda.launches > 0 and qd_cuda.launches == 0
+          and bench_launches["kernel_matrix"] > 0 and bench_launches["mvn_quad_logdet"] == 0
+          and math.isfinite(elbo))
+    n_last = n0 + (cfg["iterations"] - 1) * q
+    st_last = turbo_init(best_value=Y[:n_last].max())
+    center = X[int(Y[:n_last].argmax())]
+
+    def step():
+        model = fit_svgp(make_svgp(X[:n_last], Y[:n_last], num_inducing=m),
+                         make_generator(5, "cuda"), steps=steps, batch_size=batch)
+        return generate_turbo_candidates(model, st_last, center, make_generator(6, "cuda"),
+                                         n_candidates=cfg["n_candidates"], q=q,
+                                         lengthscale_override=model.lengthscale)
+
+    return {
+        "phase": "turbo_svgp", "ok": bool(ok),
+        "fit_s": run["fit_s"], "elbo_steps": steps, "elbo_steps_per_s": steps / run["fit_s"],
+        "elbo_plus_log_prior": elbo, "gen_calls": CONFIG5["gen_calls"],
+        "gen_ms": 1e3 * run["gen_s"], "candidates_per_s": q / run["gen_s"],
+        "loop_wall_s": run["loop_s"], "iterations": cfg["iterations"],
+        "iters_per_s": cfg["iterations"] / run["loop_s"], "best_value": best,
+        "initial_design_best": best0,
+        "launches": {"mvn_quad_logdet": qd_cuda.launches,
+                     "kernel_matrix": kernel_matrix_cuda.launches},
+        "kernel_matrix_by_path": by_path, "kernel_matrix_shapes": k2_shapes,
+        "bench_launches": bench_launches, "bench_kernel_matrix_shapes": bench_shapes,
+        "adam_step_launches": adam_step_launches(svgp, batch),
+        "finite": finite, "in_box": in_box, "last_step": profile_step(step),
+    }
+
+
 def k1_shapes_of(step) -> list:
     """K1 launches of one call of `step` by (B, n), counted by wrapping the
     wrapper that `_qd_core` calls; its own count is carried back to it."""
@@ -1301,7 +1702,7 @@ def k2_shapes_of(step) -> list:
             for (B, n, m, d, path), c in seen.most_common()]
 
 
-def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo):
+def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo, turbo_exact, turbo_svgp):
     """One row per kernel at each main-path shape, its launches from the run
     of the loop that launches it there (`launches_from`): K1 at the
     config-1 fit's (B=2, n=35), config 3's NUTS potential (8, 26) and the
@@ -1310,7 +1711,10 @@ def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo):
     ascent's k(X_train, X_full) (B=6, 76 x 80, d=6), rbf float32, at the
     config-3 shape it launches most, matern52 float32, and at the config-4
     fit's (B=2, 90 x 90, d=2) and last pick's ascent k(X_train, X_full)
-    (B=4, 90 x 94, d=2), rbf float32. A row's `launches`
+    (B=4, 90 x 94, d=2), rbf float32; config 5's: K1 at the exact TuRBO
+    fit's (2, 40), K2 at the exact paths' (1, 4096 x 2048, 20) rbf and at
+    the SVGP's Kzx (1, 256 x 512, 20), paths' Kxz (1, 2048 x 256, 20) and
+    greedy column (1, 16384 x 1, 20), matern52, float32. A row's `launches`
     counts the kernel's launches over that run at the row's shape where
     the run counts them by shape, else all of them. Every number but
     `bound_ms` is measured in this run."""
@@ -1342,10 +1746,19 @@ def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo):
     for shape, run in (((2, 35, 35, 2), loop), ((6, 35, 1, 2), loop), ((6, 76, 80, 6), qnei)):
         rows.append((*k2_src, shape, *k2_at(shape, "rbf"), run["launches"]["kernel_matrix"], run))
     rows.append((*k2_src, shape3, *k2_at(shape3, "matern52"), top3["launches"], saasbo))
+    def k2_launches(shapes, shape):
+        return sum(r["launches"] for r in shapes if (r["B"], r["n"], r["m"], r["d"]) == shape)
+
     for shape in ((2, 90, 90, 2), (4, 90, 94, 2)):
-        launches = sum(r["launches"] for r in mo["kernel_matrix_shapes"]
-                       if (r["B"], r["n"], r["m"], r["d"]) == shape)
-        rows.append((*k2_src, shape, *k2_at(shape, "rbf"), launches, mo))
+        rows.append((*k2_src, shape, *k2_at(shape, "rbf"),
+                     k2_launches(mo["kernel_matrix_shapes"], shape), mo))
+    rows.append((*k1_src, (2, 40), *k1_at(2, 40), k1_launches(turbo_exact, 2, 40), turbo_exact))
+    shape = (1, 4096, 2048, 20)
+    rows.append((*k2_src, shape, *k2_at(shape, "rbf"),
+                 k2_launches(turbo_exact["gen_kernel_matrix_shapes"], shape), turbo_exact))
+    for shape in ((1, 256, 512, 20), (1, 2048, 256, 20), (1, 16384, 1, 20)):
+        rows.append((*k2_src, shape, *k2_at(shape, "matern52"),
+                     k2_launches(turbo_svgp["kernel_matrix_shapes"], shape), turbo_svgp))
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "shape": list(shape),
          "dtype": "float32", "kind": c.get("kind"), "path": c.get("path"), "launches": launches,
@@ -1379,14 +1792,18 @@ def main() -> int:
         ("bo_loop", phase_bo_loop), ("mc_step", phase_mc_step), ("qnei_loop", phase_qnei_loop),
         ("nuts_step", phase_nuts_step), ("nuts", phase_nuts),
         ("saasbo_loop", phase_saasbo_loop), ("mo_step", phase_mo_step), ("mo_loop", phase_mo_loop),
+        ("turbo_step", phase_turbo_step), ("turbo_exact", phase_turbo_exact),
+        ("turbo_svgp", phase_turbo_svgp),
     )
     for name, fn in phases:
+        t0 = time.perf_counter()
         try:
             res = fn()
         except Exception:  # a phase that raises is a failed phase
             traceback.print_exc()
             res = {"phase": name, "ok": False, "error": traceback.format_exc(limit=3)}
         res.setdefault("ok", True)
+        res["phase_s"] = time.perf_counter() - t0
         results[name] = res
         emit(res)
         if not res["ok"]:
@@ -1397,7 +1814,8 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     emit(kernels_line(results["k1"], results["k2"], results["bo_loop"], results["qnei_loop"],
-                      results["nuts"], results["saasbo_loop"], results["mo_loop"]))
+                      results["nuts"], results["saasbo_loop"], results["mo_loop"],
+                      results["turbo_exact"], results["turbo_svgp"]))
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -128,6 +128,31 @@ def _k2_grad_tol(dtype, kind, coincident):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("B,n,m,d,coincident", K2_SHAPES)
 def test_k2_kernel_matches_plain(dev, kind, B, n, m, d, coincident, dtype):
+    _check_k2(dev, kind, B, n, m, d, coincident, dtype)
+
+
+# config 5's (TuRBO): the SVGP's (d = 20, one unbatched problem each) Kzz,
+# Kzx and Kxx of a 512-point minibatch, its paths' Kxz at 2048 candidates
+# and the greedy pivots' column over the loop's history sizes, matern52;
+# the exact GP's paths at 4096 candidates and its 2048-point train
+# covariance, rbf; the exact Ackley-4 loop's (rbf, d = 4) fit covariance
+# for 2 restarts, `train_chol`'s, and its paths' k(Xc, X) at 256 candidates
+K2_CONFIG5 = [(1, 256, 256, 20, True, "matern52"), (1, 256, 512, 20, False, "matern52"),
+              (1, 512, 512, 20, True, "matern52"), (1, 2048, 256, 20, False, "matern52"),
+              (1, 16384, 1, 20, False, "matern52"), (1, 16448, 1, 20, False, "matern52"),
+              (1, 16512, 1, 20, False, "matern52"), (1, 16576, 1, 20, False, "matern52"),
+              (1, 4096, 2048, 20, False, "rbf"), (1, 2048, 2048, 20, True, "rbf"),
+              (2, 40, 40, 4, True, "rbf"), (1, 40, 40, 4, True, "rbf"),
+              (1, 256, 40, 4, False, "rbf")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,m,d,coincident,kind", K2_CONFIG5)
+def test_k2_at_config5_shapes_matches_plain(dev, kind, B, n, m, d, coincident, dtype):
+    _check_k2(dev, kind, B, n, m, d, coincident, dtype)
+
+
+def _check_k2(dev, kind, B, n, m, d, coincident, dtype):
     """Values against the plain version in float64 (reasons at
     `chip_smoke.K2_ATOL`); the op's gradients (x, z, lengthscale) against
     autograd of the plain version, each within atol + rtol * max |ref|
@@ -382,3 +407,80 @@ def test_qlognehvi_on_the_card_matches_the_cpu(dev):
     assert torch.isfinite(vg).all() and torch.isfinite(gg).all()
     torch.testing.assert_close(vg, vc, rtol=1e-3, atol=0)
     torch.testing.assert_close(gg, gc, rtol=0, atol=2e-2 * float(gc.abs().max()))
+
+
+def _svgp_cpu(dtype, n=2000, d=20, M=64, seed=0):
+    """An SVGP of config 5's width on the CPU, with random variational and
+    kernel parameters."""
+    from botorch_tpu_torch.models.approximate_gp import make_svgp
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n, d))
+    Y = -np.sum((X - 0.4) ** 2, axis=-1) + 0.01 * rng.normal(size=n)
+    m = make_svgp(X, Y, num_inducing=M, device="cpu", dtype=dtype)
+    t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
+    return m.replace(nu_mean=t(0.3 * rng.normal(size=M)),
+                     raw_L=t(np.tril(0.05 * rng.normal(size=(M, M))) + 0.2 * np.eye(M)),
+                     raw_lengthscale=t(np.log(rng.uniform(0.5, 2.0, size=d))),
+                     raw_noise=t(np.log(0.02)))
+
+
+def test_svgp_elbo_and_gradient_on_the_card_match_the_cpu(dev):
+    """float32, a 512-point minibatch at d = 20 and 64 inducing points: the
+    loss `fit_svgp` steps on within 1e-4 relative, its gradient in every
+    trained field within 1e-3 of the field's largest entry (a float32
+    Cholesky of the jittered Kzz, by cuSOLVER and by LAPACK)."""
+    from botorch_tpu_torch.models.approximate_gp import SVGP
+
+    model = _svgp_cpu(torch.float32)
+    idx = torch.randint(0, 2000, (512,), generator=torch.Generator().manual_seed(1))
+    fields = SVGP.PARAMS + ("Z",)
+    out = {}
+    for device in ("cpu", dev):
+        m = model.to(device)
+        vals = {f: getattr(m, f).clone().requires_grad_(True) for f in fields}
+        loss = -(m.replace(**vals).elbo(idx.to(device)) + m.replace(**vals).log_prior())
+        grads = torch.autograd.grad(loss, [vals[f] for f in fields])
+        out[str(device)] = (float(loss.detach()), [g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for f, a, b in zip(fields, gg, gc):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * float(b.abs().max()), msg=f)
+
+
+def test_fit_svgp_step_on_the_card_matches_the_cpu(dev):
+    """One Adam step from the same minibatch, float64: every trained field
+    within 1e-9 (Adam's first step is lr * g / (|g| + 1e-8), so a
+    gradient entry near 1e-8 carries its card-vs-CPU rounding into the
+    step amplified ~1e6 times)."""
+    from botorch_tpu_torch.models.approximate_gp import SVGP, fit_svgp
+
+    model = _svgp_cpu(torch.float64)
+    idx = torch.randint(0, 2000, (1, 512), generator=torch.Generator().manual_seed(2))
+    fits = {str(device): fit_svgp(model.to(device), steps=1, batch_size=512,
+                                  batch_indices=idx.to(device), device=device)
+            for device in ("cpu", dev)}
+    for f in SVGP.PARAMS + ("Z",):
+        a, b = getattr(fits[str(dev)], f).cpu(), getattr(fits["cpu"], f)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-9, msg=f)
+    assert float((fits["cpu"].nu_mean - model.nu_mean).abs().max()) > 0.04  # it stepped
+
+
+def test_turbo_runs_on_the_card_through_k2(dev):
+    """Two TuRBO iterations of each model type at config 5's width (d =
+    20) on the card: K2 carries every kernel matrix, K1 the exact fit's
+    MLL at (2, 20)."""
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.optim.turbo import run_turbo
+
+    def objective(X):
+        return -torch.sum((X - 0.4) ** 2, dim=-1)
+
+    for model_type, n_init, k1 in (("exact", 16, True), ("svgp", 1024, False)):
+        kernel_matrix_cuda.launches = qd_cuda.launches = 0
+        X, Y = run_turbo(objective, d=20, n_init=n_init, iterations=2, q=2, n_candidates=256,
+                         fit_maxiter=5, model_type=model_type, svgp_inducing=32, svgp_steps=20)
+        assert X.is_cuda and X.shape == (n_init + 4, 20) and bool(torch.isfinite(Y).all())
+        assert bool(((X >= 0) & (X <= 1)).all()) and kernel_matrix_cuda.launches > 0
+        assert (qd_cuda.launches > 0) == k1

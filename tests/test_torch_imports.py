@@ -84,6 +84,8 @@ def test_sources_exist():
         "acquisition/monte_carlo.py", "sampling/nuts.py", "models/fully_bayesian.py",
         "posteriors/fully_bayesian.py", "saasbo.py", "utils/multi_objective.py",
         "test_functions/multi_objective.py", "acquisition/multi_objective.py", "mo_loop.py",
+        "models/approximate_gp.py", "sampling/pathwise.py", "generation/sampling.py",
+        "optim/turbo.py",
     ):
         assert mod in names, mod
     csrc = {p.name for p in (ROOT / "botorch_tpu_torch" / "csrc").glob("*.cu")}
@@ -188,6 +190,28 @@ def test_mo_slice_defaults_to_cuda():
     assert state.X.device.type == "cpu" and state.Y.shape == (5, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         mo_bo_step(state, sobol_table(2, device="cpu"), prob.ref_point)
+
+
+def test_turbo_slice_defaults_to_cuda():
+    """The SVGP and TuRBO entry points run on CUDA unless given a device,
+    and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a card")
+    from botorch_tpu_torch.models.approximate_gp import fit_svgp, make_svgp
+    from botorch_tpu_torch.optim.turbo import run_turbo, turbo_init
+
+    X = np.random.default_rng(0).uniform(size=(8, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_svgp(X, X.sum(-1), num_inducing=4)
+    model = make_svgp(X, X.sum(-1), num_inducing=4, device="cpu")
+    assert model.X.device.type == "cpu" and model.X.dtype == torch.float32
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_svgp(model, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        turbo_init(0.0)
+    for model_type in ("exact", "svgp"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_turbo(lambda X: X.sum(-1), d=2, n_init=4, iterations=1, model_type=model_type)
 
 
 def test_mc_acquisition_refuses_fully_bayesian_models():

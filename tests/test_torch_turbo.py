@@ -1,0 +1,286 @@
+"""Port parity for `optim/turbo.py` (TuRBO, config 5) and `Ackley` against
+botorch_tpu on the CPU.
+
+* `turbo_update` over a scripted sequence of batches that grows the
+  region, shrinks it seven times and triggers a restart: every field equal
+  after every update.
+* `generate_turbo_candidates` for an exact GP and for an SVGP, with the
+  JAX package's draws passed in (its key splits replayed): the
+  perturbation set inside the trust region (as
+  `test_acquisition_extra.py::test_turbo_candidates_with_svgp` holds it),
+  the JAX paths' values at the port's perturbation set within 1e-4 of the
+  port's paths' in float32 (a float32 Cholesky solve of a covariance with condition
+  number ~1e3), the same candidates wherever the top two path values are
+  further apart than that (in float64 the values within 1e-5: the
+  reference's kernels accumulate in float32 even under x64).
+* Tiny closed loops of both model types on the CPU: the Sobol initial
+  design bit for bit the reference's, shapes, finite values.
+* Slow: `run_turbo(model_type="exact")` on Ackley-4 at the reference
+  test's budget over 6 seeds, against the JAX package's host `run_turbo`
+  mean best value, and a small `model_type="svgp"` loop over 20 seeds,
+  against its mean improvement over the initial design.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from botorch_tpu.models import approximate_gp as jag
+from botorch_tpu.models import gp as jgp
+from botorch_tpu.optim import turbo as jturbo
+from botorch_tpu.sampling import pathwise as jpw
+from botorch_tpu.sampling.sobol import draw_sobol as j_draw_sobol
+from botorch_tpu.sampling.sobol import sobol_table as j_sobol_table
+from botorch_tpu.test_functions.synthetic import Ackley as JAckley
+from botorch_tpu.utils.transforms import unnormalize as j_unnormalize
+from botorch_tpu_torch import convert
+from botorch_tpu_torch.models import gp as tgp
+from botorch_tpu_torch.models.approximate_gp import SVGP
+from botorch_tpu_torch.optim import turbo as tturbo
+from botorch_tpu_torch.sampling.pathwise import PathDraws, draw_matheron_paths
+from botorch_tpu_torch.settings import make_generator
+from botorch_tpu_torch.test_functions.synthetic import Ackley
+from botorch_tpu_torch.utils.transforms import unnormalize
+
+D, L, Q, NC = 4, 64, 4, 128
+MATERN_NU = 2.5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port: these tensors are tiny, and beside
+    the suite's other workers torch's spinning thread pool costs far more
+    than it saves (an SVGP fit of 200 steps: ~250 s with 8 threads, ~1 s
+    with one, six processes on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _state_np(st):
+    return {f: np.asarray(getattr(st, f)) for f in convert.TURBO_STATE_FIELDS}
+
+
+def test_turbo_update_grows_shrinks_and_restarts_like_reference():
+    # 3 improving batches (grow to the 1.6 cap), one more, then 42 without
+    # an improvement: eight halvings, the last one below 0.5^7 (restart)
+    ys = [np.array([-5.0, -4.0]), np.array([-3.0, -6.0]), np.array([-1.0, -2.0]),
+          np.array([0.5, 0.0])] + [np.array([-9.0, 0.5]) for _ in range(42)]
+    j_update = jax.jit(jturbo.turbo_update)
+    sj = jturbo.turbo_init(best_value=-7.0)
+    st = tturbo.turbo_init(best_value=-7.0, device="cpu")
+    seen = set()
+    for y in ys:
+        sj = j_update(sj, jnp.asarray(y, jnp.float32))
+        st = tturbo.turbo_update(st, torch.tensor(y, dtype=torch.float32))
+        want, got = _state_np(sj), _state_np(st)
+        for f in convert.TURBO_STATE_FIELDS:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        seen.add((got["length"].item(), bool(got["restart_triggered"])))
+    f32 = np.float32
+    assert {(f32(1.6), False), (f32(0.0125), False), (f32(0.00625), True)} <= seen
+    carried = convert.turbo_state_from_numpy(_state_np(sj), length_min=0.01)
+    assert bool(carried.restart_triggered) and carried.length_min == 0.01
+    assert carried.success_counter.dtype == torch.int32
+    # best value -inf: no batch counts as an improvement (NaN threshold)
+    s0 = tturbo.turbo_update(tturbo.turbo_init(device="cpu"), torch.tensor([1.0]))
+    assert int(s0.failure_counter) == 1 and float(s0.best_value) == 1.0
+
+
+def test_ackley_matches_reference():
+    X = np.random.default_rng(0).uniform(-5, 5, size=(9, 4)).astype(np.float32)
+    want = np.asarray(JAckley(dim=4, negate=True)(jnp.asarray(X)))
+    got = Ackley(dim=4, negate=True)(torch.tensor(X))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+    assert float(Ackley(dim=3)(torch.zeros(3))) == pytest.approx(0.0, abs=1e-6)
+
+
+def _exact_pair(dtype, n=20, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(n + 4, D))
+    Y = np.sin(4 * X[:, 0]) - (X[:, 1] - 0.3) ** 2 + 0.02 * rng.normal(size=n + 4)
+    mask = np.arange(n + 4) < n
+    pn = {"mean": np.array([0.05]), "raw_lengthscale": np.log([[0.2, 0.4, 0.9, 1.6]]),
+          "raw_outputscale": np.array([0.0]), "raw_noise": np.array([np.log(0.01)])}
+    pn = {k: v.astype(dtype) for k, v in pn.items()}
+    jdt = jnp.float64 if dtype == np.float64 else jnp.float32
+    jm = jgp.make_gp(jnp.asarray(X, jdt), jnp.asarray(Y, jdt)[:, None], mask=jnp.asarray(mask),
+                     params=jgp.GPParams(**{k: jnp.asarray(v) for k, v in pn.items()}))
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    tm = tgp.make_gp(X, Y[:, None], mask=mask, device="cpu", dtype=tdt,
+                     params=convert.gp_params_from_numpy(pn, dtype=tdt))
+    return jm, tm, X[int(np.argmax(np.where(mask, Y, -np.inf)))]
+
+
+def _svgp_pair(dtype, seed=0, M=10):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(60, D))
+    Y = -np.sum((X - 0.4) ** 2, axis=-1)
+    jdt = jnp.float64 if dtype == np.float64 else jnp.float32
+    jm = jag.make_svgp(jnp.asarray(X, jdt), jnp.asarray(Y, jdt), num_inducing=M)
+    jm = jm.replace(nu_mean=jnp.asarray(rng.normal(size=M), jdt),
+                    raw_lengthscale=jnp.asarray(np.log([0.3, 0.5, 0.7, 1.2]), jdt))
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    tm = convert.svgp_from_numpy({f: np.asarray(getattr(jm, f)) for f in SVGP.FIELDS}, dtype=tdt)
+    return jm, tm, X[int(np.argmax(Y))]
+
+
+def _jax_turbo_draws(key, svgp, k):
+    """The draws the JAX `generate_turbo_candidates` takes from `key`."""
+    k_pert, k_mask, k_ts = jax.random.split(key, 3)
+    k_sw, k_th, k_eps = jax.random.split(k_ts, 3)
+    k_w, k_b, k_u = jax.random.split(k_sw, 3)
+    chi2 = 2.0 * jax.random.gamma(k_u, MATERN_NU, (L, 1)) if svgp else None
+    return (jax.random.uniform(k_pert, (NC, D)), jax.random.uniform(k_mask, (NC, D)),
+            jax.random.randint(k_mask, (NC,), 0, D),
+            (jax.random.normal(k_w, (L, D)), jax.random.uniform(k_b, (L,), maxval=2 * math.pi),
+             chi2, jax.random.normal(k_th, (Q, L)), jax.random.normal(k_eps, (Q, k))))
+
+
+@pytest.mark.parametrize("kind", ["exact", "svgp"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_generate_turbo_candidates_matches_reference(kind, dtype):
+    npdt = getattr(np, dtype)
+    tdt = getattr(torch, dtype)
+    key = jax.random.PRNGKey(3)
+    with jax.enable_x64(dtype == "float64"):
+        jm, tm, center = (_exact_pair if kind == "exact" else _svgp_pair)(npdt)
+        jst = jturbo.turbo_init(best_value=0.0).replace(length=jnp.asarray(0.6))
+        k = jm.num_inducing if kind == "svgp" else jm.num_train
+
+        @jax.jit
+        def reference(jm, jst, center, key):
+            cand = jturbo.generate_turbo_candidates(jm, jst, center, key, n_candidates=NC, q=Q,
+                                                    num_features=L)
+            path = jpw.draw_matheron_paths(jm, jax.random.split(key, 3)[2], Q, L)
+            return cand, path, _jax_turbo_draws(key, kind == "svgp", k)
+
+        cj, jpath, (u, mask_u, forced, ts) = reference(jm, jst, jnp.asarray(center, jm.X.dtype),
+                                                       key)
+        cj = np.asarray(cj)
+        draws = tturbo.TurboDraws(
+            torch.tensor(np.array(u), dtype=tdt), torch.tensor(np.array(mask_u), dtype=tdt),
+            torch.tensor(np.array(forced), dtype=torch.long),
+            PathDraws(*(None if a is None else torch.tensor(np.array(a), dtype=tdt) for a in ts)))
+        st = convert.turbo_state_from_numpy(_state_np(jst), dtype=tdt)
+        center_t = torch.tensor(center, dtype=tdt)
+        Xc = tturbo.turbo_candidate_set(tm, st, center_t, n_candidates=NC, draws=draws)
+        vj = np.asarray(jax.jit(lambda p, x: p(x))(jpath, jnp.asarray(Xc.numpy())))
+    # the perturbation set lies in the trust region around the incumbent
+    ls = tturbo.trust_region_lengthscale(tm)
+    w = ls / torch.exp(torch.mean(torch.log(ls)))
+    assert Xc.shape == (NC, D) and bool(((Xc >= 0) & (Xc <= 1)).all())
+    assert bool((torch.abs(Xc - center_t) <= 0.5 * 0.6 * w + 1e-6).all())
+    assert bool(((Xc != center_t).sum(-1) >= 1).all())  # at least one dim perturbed
+    # the port's paths at that set, and its picks
+    paths = draw_matheron_paths(tm, num_paths=Q, num_features=L, draws=draws.ts)
+    vt = paths(Xc).numpy()
+    # float64: the reference's kernels accumulate x z^T in float32 under x64
+    # (5e-7 in each kernel entry), which the solve against K carries to ~2e-6
+    tol = (1e-4 if dtype == "float32" else 1e-5) * max(1.0, np.abs(vj).max())
+    np.testing.assert_allclose(vt, vj, rtol=0, atol=tol)
+    ct = tturbo.generate_turbo_candidates(tm, st, center_t, n_candidates=NC, q=Q,
+                                          num_features=L, draws=draws)
+    assert ct.shape == (Q, D) and ct.dtype == tdt
+    ok = np.sort(vj, -1)[:, -1] - np.sort(vj, -1)[:, -2] > tol
+    assert ok.sum() >= Q - 1
+    # the same rows of the perturbation set, which XLA rounds in another
+    # order (`lb + (ub - lb) u`): one float32 ulp
+    np.testing.assert_allclose(ct.numpy()[ok], cj[ok], rtol=0,
+                               atol=1e-6 if dtype == "float32" else 1e-12)
+
+
+def test_generate_turbo_candidates_from_a_generator_and_sobol():
+    _, tm, center = _svgp_pair(np.float32)
+    st = tturbo.turbo_init(best_value=0.0, device="cpu")
+    center_t = torch.tensor(center, dtype=torch.float32)
+    g = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    a = tturbo.generate_turbo_candidates(tm, st, center_t, g(), n_candidates=64, q=3)
+    b = tturbo.generate_turbo_candidates(tm, st, center_t, g(), n_candidates=64, q=3)
+    torch.testing.assert_close(a, b)
+    from botorch_tpu_torch.sampling.sobol import sobol_table
+
+    sob = sobol_table(D, seed=1, device="cpu")
+    Xc = tturbo.turbo_candidate_set(tm, st, center_t, g(), n_candidates=64, sobol=sob,
+                                    sobol_skip=5)
+    assert Xc.shape == (64, D) and bool(((Xc >= 0) & (Xc <= 1)).all())
+    with pytest.raises(ValueError, match="model_type"):
+        tturbo.run_turbo(lambda X: X.sum(-1), d=2, n_init=3, iterations=1, model_type="sparse",
+                         device="cpu")
+
+
+def _quadratic(X):
+    return -torch.sum((X - 0.4) ** 2, dim=-1)
+
+
+@pytest.mark.parametrize("model_type", ["exact", "svgp"])
+def test_run_turbo_tiny_loop(model_type):
+    n_init, iters, q = (6, 2, 2) if model_type == "exact" else (48, 2, 3)
+    X, Y = tturbo.run_turbo(_quadratic, d=3, n_init=n_init, iterations=iters, q=q,
+                            n_candidates=64, fit_maxiter=5, model_type=model_type,
+                            svgp_inducing=8, svgp_steps=10, seed=2, device="cpu")
+    sv, shift = j_sobol_table(3, scramble=True, seed=2)
+    np.testing.assert_array_equal(X[:n_init].numpy(), np.asarray(j_draw_sobol(sv, shift, n_init)))
+    assert X.shape == (n_init + iters * q, 3) and Y.shape == (n_init + iters * q,)
+    assert bool(torch.isfinite(Y).all()) and bool(((X >= 0) & (X <= 1)).all())
+    torch.testing.assert_close(Y, _quadratic(X))
+
+
+ACKLEY_SEEDS = range(6)
+# the reference test's budget (`tests/test_acquisition_extra.py`)
+ACKLEY_BUDGET = dict(d=4, n_init=10, iterations=15, q=2, n_candidates=256, fit_maxiter=25)
+
+
+@pytest.mark.slow
+def test_turbo_exact_on_ackley_over_seeds_matches_reference():
+    """Mean best value over 6 seeds: the port's is no worse than the JAX
+    package's host loop's less 1.5 (the seeds' standard error is ~1). As
+    in the reference's test, a seed is the key (here the generator) and
+    every seed starts from the same Sobol design (`seed=0`)."""
+    jprob, prob = JAckley(dim=4, negate=True), Ackley(dim=4, negate=True)
+    jobj = lambda X: jprob(j_unnormalize(X, jprob.bounds))  # noqa: E731
+    tobj = lambda X: prob(unnormalize(X, prob.bounds.to(X)))  # noqa: E731
+    best_j, best_t = [], []
+    for seed in ACKLEY_SEEDS:
+        _, Yj = jturbo.run_turbo(jobj, key=jax.random.PRNGKey(seed), **ACKLEY_BUDGET)
+        _, Yt = tturbo.run_turbo(tobj, generator=make_generator(seed, "cpu"), device="cpu",
+                                 **ACKLEY_BUDGET)
+        assert float(Yt[10:].max()) > float(Yt[:10].max())
+        best_j.append(float(Yj.max()))
+        best_t.append(float(Yt.max()))
+    print("ackley-4 best, port:", best_t, "JAX:", best_j)
+    assert np.mean(best_t) >= np.mean(best_j) - 1.5
+
+
+SVGP_SEEDS = range(20)
+# a small SVGP loop whose every run improves on its design
+SVGP_BUDGET = dict(d=10, n_init=256, iterations=4, q=8, n_candidates=512, model_type="svgp",
+                   svgp_inducing=32, svgp_steps=100)
+
+
+@pytest.mark.slow
+def test_turbo_svgp_over_seeds_matches_reference():
+    """A small SVGP loop (d = 10, 256 initial points, 4 iterations of q =
+    8, 32 inducing points, 100 Adam steps) on -|x - 0.4|^2 over 20 seeds
+    (keys; one Sobol design, best -0.312): every run of the port improves
+    on the design, and its mean improvement is no less than the JAX
+    package's less 0.025. The improvement's spread over seeds is ~0.03
+    for either package, the standard error of the two 20-seed means'
+    difference ~0.009."""
+    n0 = SVGP_BUDGET["n_init"]
+    jobj = lambda X: -jnp.sum((X - 0.4) ** 2, axis=-1)  # noqa: E731
+    gain_j, gain_t = [], []
+    for seed in SVGP_SEEDS:
+        _, Yj = jturbo.run_turbo(jobj, key=jax.random.PRNGKey(seed), **SVGP_BUDGET)
+        _, Yt = tturbo.run_turbo(_quadratic, generator=make_generator(seed, "cpu"), device="cpu",
+                                 **SVGP_BUDGET)
+        gain_j.append(float(Yj.max() - Yj[:n0].max()))
+        gain_t.append(float(Yt.max() - Yt[:n0].max()))
+    print("svgp improvement over the design, port:", gain_t, "JAX:", gain_j)
+    assert min(gain_t) > 0
+    assert np.mean(gain_t) >= np.mean(gain_j) - 0.025

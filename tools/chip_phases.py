@@ -1,12 +1,16 @@
 """Chosen phases of `chip_smoke.py` alone, on one card, for a short run that
 checks a new path before the whole script:
 
-    python3 tools/chip_phases.py build k2_config4 mo_step mo_loop
+    python3 tools/chip_phases.py build k2_config5 turbo_step turbo_exact turbo_svgp
 
 Each name is a phase of `chip_smoke.py` (`build`, `k1`, `k2`, `bo_step`,
 `bo_loop`, `mc_step`, `qnei_loop`, `nuts_step`, `nuts`, `saasbo_loop`,
-`mo_step`, `mo_loop`) or `k2_config4`: the k2 phase's cases at config 4's
-shapes alone (rbf, float32 and float64, both paths timed). Build the
+`mo_step`, `mo_loop`, `turbo_step`, `turbo_exact`, `turbo_svgp`),
+`k2_config4`: the k2 phase's cases at config 4's shapes alone (rbf,
+float32 and float64, both paths timed), or `k2_config5`: its cases at
+config 5's loops' shapes (float32, both paths timed), or
+`saasbo_loop_profiled`: the saasbo_loop phase with its profiled step,
+which `chip_smoke.py` leaves out for time. Build the
 kernels first (`build`) unless an earlier call in the same process did.
 Prints one JSON line per phase, as `chip_smoke.py` does, with the phase's
 wall seconds (`phase_s`), then the card's name and power limit; exits
@@ -27,18 +31,29 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def k2_config4(gen) -> dict:
+# the k2 phase's cases at one config's shapes alone, both paths timed
+K2_CONFIGS = {
+    "k2_config4": ([(shape, "rbf") for shape in cs.CONFIG4_K2], (torch.float32, torch.float64)),
+    "k2_config5": (cs.CONFIG5_K2, (torch.float32,)),
+}
+
+
+def k2_config(name, gen) -> dict:
+    table, dtypes = K2_CONFIGS[name]
     floor = cs.floor_ms()
-    cases = [cs.k2_case(*shape, "rbf", dtype, gen, floor, both_paths=True)
-             for dtype in (torch.float32, torch.float64) for shape in cs.CONFIG4_K2]
-    return {"phase": "k2_config4", "ok": all(c["ok"] for c in cases), "floor_ms": floor,
+    cases = cs.k2_config_cases(table, dtypes, gen, floor)
+    return {"phase": name, "ok": all(c["ok"] for c in cases), "floor_ms": floor,
             "cases": cases}
 
 
 def phase(name):
-    """`chip_smoke.phase_<name>`, or this script's `k2_config4`; None if
-    neither exists."""
-    return k2_config4 if name == "k2_config4" else getattr(cs, f"phase_{name}", None)
+    """`chip_smoke.phase_<name>`, this script's `k2_config4` or
+    `k2_config5`, or `saasbo_loop_profiled`; None if none exists."""
+    if name in K2_CONFIGS:
+        return lambda gen: k2_config(name, gen)
+    if name == "saasbo_loop_profiled":
+        return lambda: cs.phase_saasbo_loop(profile=True)
+    return getattr(cs, f"phase_{name}", None)
 
 
 def main(names) -> int:
@@ -53,7 +68,7 @@ def main(names) -> int:
         t0 = time.perf_counter()
         try:
             # the kernel phases draw their inputs from one shared generator
-            res = fn(gen) if inspect.signature(fn).parameters else fn()
+            res = fn(gen) if "gen" in inspect.signature(fn).parameters else fn()
         except Exception:  # a phase that raises is a failed phase
             traceback.print_exc()
             res = {"phase": name, "ok": False, "error": traceback.format_exc(limit=5)}

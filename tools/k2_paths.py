@@ -28,7 +28,11 @@ from botorch_tpu_torch.ops.kernel_matrix import k2_plan, kernel_matrix_plain  # 
 from chip_smoke import k2_paths_ms, smi_line  # noqa: E402
 
 SHAPES = ((2, 35, 35, 2), (6, 35, 1, 2), (1, 64, 48, 20), (1, 300, 257, 7),
-          (1, 1024, 1024, 8), (1, 4096, 4096, 8))
+          (1, 1024, 1024, 8), (1, 4096, 4096, 8),
+          # config 5's (TuRBO, d = 20): the SVGP's Kzz, Kzx, Kxx, paths' Kxz
+          # and greedy column, the exact GP's paths and train covariance
+          (1, 256, 256, 20), (1, 256, 512, 20), (1, 512, 512, 20), (1, 2048, 256, 20),
+          (1, 16384, 1, 20), (1, 4096, 2048, 20), (1, 2048, 2048, 20))
 
 
 def main() -> int:
