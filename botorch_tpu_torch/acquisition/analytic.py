@@ -1,6 +1,7 @@
 r"""Analytic acquisition functions for Gaussian posteriors (counterpart of
 `botorch_tpu/acquisition/analytic.py`): EI, LogEI, PI, LogPI, UCB and
-PosteriorMean, the classes of the BO loop's `_ANALYTIC` table.
+PosteriorMean, the classes of the BO loop's `_ANALYTIC` table, and the
+constrained (Log)EI of independent outputs.
 
 Each acquisition function is a dataclass holding the fitted model and its
 train cache (`model.train_chol()`), so every evaluation reuses one
@@ -27,6 +28,7 @@ from botorch_tpu_torch.utils.probability import (
     ei_helper,
     log_ei_helper,
     log_ndtr,
+    log_prob_normal_in,
     ndtr,
 )
 from botorch_tpu_torch.utils.safe_math import logmeanexp, maximum
@@ -136,6 +138,79 @@ class PosteriorMean(AnalyticAcquisitionFunction):
     def __call__(self, X: Tensor) -> Tensor:
         mean, _ = self._mean_and_sigma(X)
         return self._reduce(mean if self.maximize else -mean)
+
+
+@dataclass(kw_only=True)
+class ConstrainedAnalyticBase(AnalyticAcquisitionFunction):
+    """Feasibility weighting over independent outputs: output
+    `objective_index` is the objective, every other output `i` is
+    constrained to `[constraint_lower[i], constraint_upper[i]]`, with `-inf`
+    or `inf` leaving that side open (two-sided, lower-only and upper-only
+    cases). `X: (b, 1, d)` gives `(b,)`; an ensemble model is not taken."""
+
+    best_f: Union[Tensor, float] = 0.0
+    constraint_lower: Tensor  # (m,)
+    constraint_upper: Tensor  # (m,)
+    objective_index: int = 0
+
+    def __post_init__(self):
+        if self.model.batch_shape:
+            raise NotImplementedError(
+                "constrained analytic acquisition over an ensemble is not ported (the JAX "
+                "package does not reduce the ensemble here either)"
+            )
+
+    def _moments(self, X: Tensor) -> tuple[Tensor, Tensor]:
+        post = self.model.posterior(X, cache=self.cache)
+        means = post.mean[..., 0, :]  # (b, m)
+        sigmas = torch.sqrt(maximum(post.variance[..., 0, :], _MIN_VAR))
+        return means, sigmas
+
+    def _log_prob_feas(self, means: Tensor, sigmas: Tensor) -> Tensor:
+        """`sum_i log P(lower_i <= y_i <= upper_i)` over the constrained
+        outputs. The values are the JAX package's; an infinite bound is
+        replaced by 0 before it is standardized, so no branch sees `inf`
+        and the gradient stays finite (the JAX package's is NaN wherever a
+        bound is infinite, the objective's column included)."""
+        lower = torch.as_tensor(self.constraint_lower).to(means)
+        upper = torch.as_tensor(self.constraint_upper).to(means)
+        m = means.shape[-1]
+        has_lo, has_hi = torch.isfinite(lower), torch.isfinite(upper)
+        constrained = (torch.arange(m, device=means.device) != self.objective_index) & (
+            has_lo | has_hi)
+        lo = (torch.where(has_lo, lower, 0.0) - means) / sigmas
+        hi = (torch.where(has_hi, upper, 0.0) - means) / sigmas
+        two_sided = has_lo & has_hi
+        lp = torch.where(
+            two_sided,
+            log_prob_normal_in(torch.where(two_sided, lo, -1.0), torch.where(two_sided, hi, 1.0)),
+            torch.where(has_lo, log_ndtr(-lo), log_ndtr(hi)),
+        )
+        return torch.sum(torch.where(constrained, lp, 0.0), dim=-1)
+
+    def _u(self, X: Tensor, best_f) -> tuple[Tensor, Tensor, Tensor]:
+        means, sigmas = self._moments(X)
+        i = self.objective_index
+        u = (means[..., i] - best_f) / sigmas[..., i]
+        return (u if self.maximize else -u), sigmas[..., i], self._log_prob_feas(means, sigmas)
+
+
+@dataclass(kw_only=True)
+class LogConstrainedExpectedImprovement(ConstrainedAnalyticBase):
+    """`log EI(x) + sum_i log P(feasible_i)`."""
+
+    def __call__(self, X: Tensor) -> Tensor:
+        u, sigma, log_feas = self._u(X, self.best_f)
+        return log_ei_helper(u) + torch.log(sigma) + log_feas
+
+
+@dataclass(kw_only=True)
+class ConstrainedExpectedImprovement(ConstrainedAnalyticBase):
+    """`EI(x) * prod_i P(feasible_i)`."""
+
+    def __call__(self, X: Tensor) -> Tensor:
+        u, sigma, log_feas = self._u(X, self.best_f)
+        return sigma * ei_helper(u) * torch.exp(log_feas)
 
 
 ANALYTIC = {

@@ -33,6 +33,7 @@ from botorch_tpu_torch.sampling.sobol import (
     sobol_table,
 )
 from botorch_tpu_torch.utils import safe_math as sm
+from botorch_tpu_torch.utils.constraints import smoothed_feasibility_log_indicator
 from botorch_tpu_torch.utils.transforms import is_fully_bayesian
 
 Tensor = torch.Tensor
@@ -64,18 +65,6 @@ def linear_objective(weights) -> Callable[[Tensor], Tensor]:
         return torch.sum(samples * w, dim=-1)
 
     return obj
-
-
-def smoothed_feasibility_log_indicator(
-    constraints, samples: Tensor, eta: float, fat: bool = True
-) -> Tensor:
-    """Sum over constraints of the log smooth step of `-c(samples)/eta`
-    (feasible iff `c(x) <= 0`)."""
-    step = sm.log_fatmoid if fat else sm.logexpit
-    total = 0.0
-    for c in constraints:
-        total = total + step(-c(samples) / eta)
-    return total
 
 
 @dataclass(frozen=True, kw_only=True)

@@ -106,8 +106,8 @@ class TurboDraws(NamedTuple):
 
 
 def _is_pathwise(model) -> bool:
-    """Exact unbatched GPs and SVGPs have pathwise draws; other models (an
-    ensemble) take a joint posterior draw."""
+    """Exact unbatched GPs and SVGPs have pathwise draws; any other model
+    takes a joint posterior draw."""
     if isinstance(model, SVGP):
         return True
     return isinstance(model, SingleTaskGP) and not model.batch_shape
@@ -176,7 +176,14 @@ def generate_turbo_candidates(
 ) -> Tensor:
     """One TuRBO candidate-generation step in the unit cube: `(q, d)`
     candidates chosen by Thompson sampling over the perturbation set, from
-    `generator` or from `draws`."""
+    `generator` or from `draws`. An ensemble (a `SingleTaskGP` with a
+    non-empty `batch_shape`) raises: its joint draw would pick per member."""
+    if isinstance(model, SingleTaskGP) and model.batch_shape:
+        raise NotImplementedError(
+            "generate_turbo_candidates over an ensemble (a SingleTaskGP with batch_shape "
+            f"{model.batch_shape}) is not supported: Thompson sampling would return one pick "
+            "per ensemble member, not (q, d) candidates"
+        )
     X_cand = turbo_candidate_set(model, state, X_center, generator, n_candidates, sobol,
                                  sobol_skip, lengthscale_override, draws)
     return max_posterior_sampling(

@@ -86,6 +86,22 @@ def log_ndtr(x: Tensor) -> Tensor:
     return log_erfc(_neg_inv_sqrt_2 * x) - _log_2
 
 
+def standard_normal_log_hazard(x: Tensor) -> Tensor:
+    """`log(phi(x) / Phi(-x))`, stable in both tails."""
+    return math.log(2.0 * _inv_sqrt_2pi) - log_erfcx(_inv_sqrt_2 * x)
+
+
+def log_prob_normal_in(a: Tensor, b: Tensor) -> Tensor:
+    """`log(Phi(b) - Phi(a))` for `a < b`, stable over huge ranges: where
+    `|b| > |a|`, `Phi(b) - Phi(a) = Phi(-a) - Phi(-b)` takes the difference
+    in the well-behaved left tail of `log_ndtr`."""
+    a, b = torch.broadcast_tensors(a, b)
+    rev = torch.abs(b) > torch.abs(a)
+    a2 = torch.where(rev, -b, a)
+    b2 = torch.where(rev, -a, b)
+    return log1mexp(minimum(log_ndtr(a2) - log_ndtr(b2), 0.0)) + log_ndtr(b2)
+
+
 def ei_helper(u: Tensor) -> Tensor:
     """`phi(u) + u * Phi(u)`: EI in units of the posterior stddev."""
     return phi(u) + u * ndtr(u)

@@ -1,6 +1,7 @@
 """On-card smoke test of botorch_tpu_torch: build, kernel checks, the
 config-1 (LogEI), config-2 (qLogNEI), config-3 (SAASBO), config-4
-(qLogNEHVI, m = 2) and config-5 (TuRBO, exact GP and SVGP) loops.
+(qLogNEHVI, m = 2) and config-5 (TuRBO, exact GP and SVGP) loops, and
+constrained acquisition optimization with its two loops.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -22,9 +23,10 @@ Phases, each printing one JSON line:
      inputs (`narrow_ms`, `tiled_ms`; `path` is the one `k2_plan` picks),
      and the same at config 4's shapes (rbf, d=2, 90 padded rows and
      joint posteriors of 91-94 points), and at every shape config 5's
-     benches and loops launch (float32, both paths timed); and the device
-     launches of the op's
-     forward and backward;
+     benches and loops launch (float32, both paths timed), and at every
+     shape the constrained loops launch (rbf, float32 and float64, both
+     paths timed); and the device launches of the op's forward and
+     backward;
   4. bo_step: one config-1 BO step on the card against the same step on
      the CPU (plain versions), with the same restart starts and initial
      conditions;
@@ -52,9 +54,9 @@ Phases, each printing one JSON line:
  10. saasbo_loop: config 3 (SAASBO on Branin embedded in d=8, n_init=10,
      16 iterations, 8 chains, 256/128/8, depth 6, ensemble LogEI with 32
      restarts, 512 raw samples, 50 iterations, seed 0) through
-     `run_saasbo`, all 16 iterations at the config's capacity and
-     budgets, with K1's and K2's launches by shape, the final regret
-     beside the initial design's, and the active dims' median
+     `run_saasbo`, its first 5 iterations (buffers of 15 rows) at the
+     config's budgets, with K1's and K2's launches by shape, the final
+     regret beside the initial design's, and the active dims' median
      lengthscales beside the distractors' (its profiled step, 90-150 s
      more, runs in `tools/chip_phases.py saasbo_loop_profiled`);
  11. mo_step: one config-4 qLogNEHVI step (10 BraninCurrin points in 90
@@ -87,7 +89,22 @@ Phases, each printing one JSON line:
      `run_turbo(model_type="svgp")` on -sum((x - 0.4)^2), d=20, 16384
      Sobol points, 4 iterations of q=64, 2048 candidates, 300 steps: the
      best value beside the initial design's, K2's launches by shape and
-     path, the launches of one Adam step, and one profiled iteration.
+     path, the launches of one Adam step, and one profiled iteration;
+ 16. constrained_step: one `optimize_acqf` of each constrained branch on
+     the card against the CPU, from the same fit starts and initial
+     conditions (example 06's outcome-constrained qLogEI under a linear
+     inequality, example 12's LogEI on the simplex with x0 <= 0.5, an
+     inter-point budget at q = 2, an intra-point nonlinear 1 - |x|^2 >= 0):
+     the candidates' distance, the values, both sides' violation (the
+     card's at most `FEASIBILITY_TOL`); then one whole call of each on the
+     card with its own initial conditions (wall ms, device launches, host
+     syncs) and the hit-and-run chain of 64 polytope points alone;
+ 17. constrained_loop: the ConstrainedGramacy loop (3-output GP, LogCEI,
+     10 Sobol points, 20 iterations) and Hartmann-6 under sum(x) <= 3 (10
+     polytope points, 12 iterations of LogEI under the linear constraint),
+     config 1's budgets, seed 0: the best feasible value beside the
+     design's and the optimum, every Hartmann point feasible, the regret,
+     K1's and K2's launches by shape.
 The k1 phase also holds K1 at config 3's NUTS shapes with one matrix of
 the batch not positive definite (NaN for it, the others right, no raise).
 Every phase's line carries its wall seconds (`phase_s`). The k1 and k2
@@ -127,6 +144,12 @@ MC_STEP_TOL = 2e-2
 # models), depth 6; ensemble LogEI, 32 restarts, 512 raw samples, 50
 # ascent iterations
 CONFIG3 = dict(d=8, n_init=10, iterations=16)
+# the saasbo_loop phase runs the first 5 of those iterations (capacity 15):
+# on one H100 an iteration takes ~32 s, and all 16 took 565 s of a 1273 s
+# run on a slow host, above the 1200 s limit with the constrained phases;
+# the nuts_step phase launches the config's 26-row shapes
+SAASBO_LOOP_ITERATIONS = 5
+SAASBO_LOOP_CAPACITY = CONFIG3["n_init"] + SAASBO_LOOP_ITERATIONS
 SAASBO_CFG = dict(num_warmup=256, num_samples=128, thinning=8, num_chains=8, max_depth=6,
                   num_restarts=32, raw_samples=512, acq_maxiter=50)
 # config 4 (`bench.py:174-218`): qLogNEHVI on BraninCurrin (d = 2, m = 2,
@@ -174,6 +197,23 @@ NUTS_MAX_DIVERGENCE = 0.10
 # depth, leaves and divergence equal, max |z difference| and the
 # potential's relative difference
 NUTS_STEP_TOL = {"z": 1e-3, "pe_rel": 1e-4}
+# constrained optimization (ROADMAP item 17): the ConstrainedGramacy loop
+# (Gramacy et al. 2016, negated to maximize: best reachable -0.5998; 10
+# Sobol points, 20 iterations, capacity 30) and Hartmann-6 under the known
+# linear constraint sum(x) <= 3 (BoTorch's closed-loop constrained
+# tutorial's ||x||_1 <= 3; the optimum sums to 2.07), 10 polytope points
+# and 12 iterations (capacity 22); both at config 1's budgets
+GRAMACY_OPT = 0.5998
+GRAMACY_LOOP = dict(n_init=10, iterations=20)
+GRAMACY_LOWER = (-math.inf, 0.0, 0.0)  # the objective, then both slacks >= 0
+HARTMANN_LOOP = dict(n_init=10, iterations=12)
+HARTMANN_SUM_LE_3 = [(tuple(range(6)), (-1.0,) * 6, -3.0)]
+# card against CPU in one constrained `optimize_acqf` from the same fit
+# starts and initial conditions: max |candidate difference| and the value's
+# |difference| / max(1, |value|), as `MC_STEP_TOL`; a candidate that moves
+# further (a flat optimum: the inter-point budget's is a whole face) must
+# score as high under the CPU's acquisition, within the same tolerance
+CONSTRAINED_STEP_TOL = 2e-2
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 /
 # float64 operations per second outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -434,11 +474,13 @@ def k1_case(B, n, dtype, gen, floor):
 
 
 # the last two fill every SM with more than one matrix's block
-# (8, 26) and (64, 24): config 3's NUTS potential and `bench.py`'s NUTS
-# throughput shape; (2, 40): config 5's exact TuRBO fit
+# (8, 26), (8, 15) and (64, 24): config 3's NUTS potential at its capacity
+# and at the saasbo_loop phase's, and `bench.py`'s NUTS throughput shape; (2, 40): config 5's exact TuRBO fit; (2, 30) and (2, 22):
+# the constrained loops' fits (Gramacy, each of its 3 outputs; Hartmann-6)
 K1_SHAPES = ((7, 13), (32, 24), (8, 64), (2, 35)) + tuple(
     (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)) + ((200, 35), (200, 64), (8, 26), (64, 24),
-                                                            (2, 40))
+                                                            (2, 40), (2, 30), (2, 22),
+                                                            (8, SAASBO_LOOP_CAPACITY))
 
 
 def k1_nan_member_case(B, n, gen) -> dict:
@@ -617,12 +659,14 @@ def k2_case(B, n, m, d, coincident, kind, dtype, gen, floor, both_paths=False):
 CONFIG2_K2 = ((2, 76, 76, 6, "shared"), (1, 76, 76, 6, "shared"), (64, 76, 80, 6, None),
               (64, 80, 80, 6, "batched"), (6, 76, 80, 6, None), (6, 80, 80, 6, "batched"))
 # config 3's (matern52): the NUTS potential's covariance of 26 padded rows
-# for 8 chains, the ensemble `train_chol`'s for 16 members, k(x_train, X)
-# and k(X, X) of the ensemble LogEI at the 512 raw points and 32 restarts
-# (times 16 members), and the NUTS throughput shape's covariance
-CONFIG3_K2 = ((8, 26, 26, 8, "shared"), (16, 26, 26, 8, "shared"), (8192, 26, 1, 8, None),
-              (8192, 1, 1, 8, "batched"), (512, 26, 1, 8, None), (512, 1, 1, 8, "batched"),
-              (64, 24, 24, 10, "shared"))
+# (the config's capacity) and of 15 (the saasbo_loop phase's) for 8 chains,
+# the ensemble `train_chol`'s for 16 members, k(x_train, X) and k(X, X) of
+# the ensemble LogEI at the 512 raw points and 32 restarts (times 16
+# members), and the NUTS throughput shape's covariance
+CONFIG3_K2 = tuple((B, n, m, 8, c) for n in (26, SAASBO_LOOP_CAPACITY)
+                   for B, m, c in ((8, n, "shared"), (16, n, "shared"), (8192, 1, None),
+                                   (512, 1, None)))
+CONFIG3_K2 += ((8192, 1, 1, 8, "batched"), (512, 1, 1, 8, "batched"), (64, 24, 24, 10, "shared"))
 # config 4's (rbf, d = 2): the fit's covariance of 90 padded rows for its 2
 # restarts and `train_chol`'s (each once per output), and the joint
 # posterior of the 90 baseline rows and the 1-4 sequential-greedy points,
@@ -645,6 +689,14 @@ CONFIG5_K2 = (((1, 256, 256, 20, "shared"), "matern52"), ((1, 256, 512, 20, None
               ((1, 4096, 2048, 20, None), "rbf"), ((1, 2048, 2048, 20, "shared"), "rbf"),
               ((2, 40, 40, 4, "shared"), "rbf"), ((1, 40, 40, 4, "shared"), "rbf"),
               ((1, 256, 40, 4, None), "rbf"))
+# the constrained loops' (rbf): ConstrainedGramacy's (d = 2, 30 padded rows)
+# fit and `train_chol` covariances for its 2 restarts and once, and the
+# LogCEI's k(x_train, X) and k(X, X) for the 6 restarts and the 64 raw
+# points; the same for Hartmann-6 under sum(x) <= 3 (d = 6, 22 rows)
+CONSTRAINED_K2 = tuple(
+    ((B, n, m, d, c), "rbf") for n, d in ((30, 2), (22, 6))
+    for B, m, c in ((2, n, "shared"), (1, n, "shared"), (6, 1, None), (64, 1, None)))
+CONSTRAINED_K2 += tuple(((B, 1, 1, d, "batched"), "rbf") for d in (2, 6) for B in (6, 64))
 K2_SHAPES = ((2, 35, 35, 2, "shared"), (1, 35, 35, 2, "shared"), (1, 300, 257, 7, None),
              (6, 35, 1, 2, None), (6, 1, 1, 2, None), (64, 35, 1, 2, None), (64, 1, 1, 2, None),
              (80, 35, 1, 2, None), (80, 1, 1, 2, None), (1, 64, 48, 8, None),
@@ -706,6 +758,7 @@ def phase_k2(gen):
         cases += k2_config_cases([(s, "rbf") for s in CONFIG4_K2],
                                  (torch.float32, torch.float64), gen, floor)
         cases += k2_config_cases(CONFIG5_K2, (torch.float32,), gen, floor)
+        cases += k2_config_cases(CONSTRAINED_K2, (torch.float32, torch.float64), gen, floor)
     return {"phase": "k2", "ok": all(c["ok"] for c in cases), "floor_ms": floor,
             "clocks": clocks.summary(), "op_launches": k2_op_launches(), "cases": cases}
 
@@ -1013,8 +1066,9 @@ def phase_nuts():
 
 
 def phase_saasbo_loop(profile: bool = False):
-    """Config 3 through `run_saasbo`, seed 0, at `bench.py`'s budgets and
-    capacity (26 rows), with K1's and K2's launches by shape over
+    """Config 3 through `run_saasbo`, seed 0, at `bench.py`'s budgets, its
+    first `SAASBO_LOOP_ITERATIONS` iterations, with K1's and K2's launches
+    by shape over
     the run, the NUTS counters, the final regret beside the initial
     design's, the SAAS dimension check of the JAX package's test (the
     median of the two active dims' median lengthscales below the
@@ -1031,8 +1085,8 @@ def phase_saasbo_loop(profile: bool = False):
     from botorch_tpu_torch.settings import make_generator
 
     objective = _branin_embedded()
-    d, n0, iterations = CONFIG3["d"], CONFIG3["n_init"], CONFIG3["iterations"]
-    capacity = n0 + iterations
+    d, n0, iterations = CONFIG3["d"], CONFIG3["n_init"], SAASBO_LOOP_ITERATIONS
+    capacity = SAASBO_LOOP_CAPACITY
     # warm-up: one short step on buffers of the loop's capacity, then the
     # counted, timed run
     Xw = torch.rand(capacity, d, generator=make_generator(1, "cuda"), device="cuda")
@@ -1065,7 +1119,8 @@ def phase_saasbo_loop(profile: bool = False):
           and main_k1 and main_k1[0]["launches"] > 0 and kernel_matrix_cuda.launches > 0)
     out = {
         "phase": "saasbo_loop", "ok": bool(ok), "wall_s": wall, "iterations": iterations,
-        "capacity": capacity, "iters_per_s": iterations / wall,
+        "config_iterations": CONFIG3["iterations"], "capacity": capacity,
+        "iters_per_s": iterations / wall,
         "regret": regret, "initial_design_regret": initial_regret,
         "median_lengthscales_last": ml.tolist(), "active_median": active,
         "distractor_median": distractors,
@@ -1083,7 +1138,7 @@ def phase_saasbo_loop(profile: bool = False):
 
 def saasbo_step_breakdown(res) -> dict:
     """Wall time of one SAASBO step at the loop's last history size (all
-    rows but the last valid, in the loop's padded buffers) and where its
+    rows but the last valid, in the loop's buffers) and where its
     device time goes (profiled in a second, identical call; CUDA activity
     only: the profiler's CPU activity over ~10^6 launches costs minutes)."""
     import torch
@@ -1092,10 +1147,7 @@ def saasbo_step_breakdown(res) -> dict:
     from botorch_tpu_torch.settings import make_generator
 
     n = res.X.shape[0] - 1
-    capacity = CONFIG3["n_init"] + CONFIG3["iterations"]
-    X = torch.zeros(capacity, res.X.shape[1], device=res.X.device)
-    Y = torch.zeros(capacity, device=res.X.device)
-    X[: n + 1], Y[: n + 1] = res.X, res.Y
+    X, Y = res.X.clone(), res.Y.clone()
 
     def step():
         return saasbo_step(X, Y, n, make_generator(5, "cuda"), seed=0, **SAASBO_CFG)
@@ -1602,6 +1654,394 @@ def phase_turbo_svgp():
     }
 
 
+# ---------------------------------------------------------------------- #
+# Constrained acquisition optimization (ROADMAP item 17)
+
+
+def _unit_bounds(d: int, device, dtype=None):
+    import torch
+
+    dtype = dtype or torch.float32
+    return torch.stack([torch.zeros(d, dtype=dtype, device=device),
+                        torch.ones(d, dtype=dtype, device=device)])
+
+
+def gramacy_evaluate(X):
+    """`(n, 3)` observations of negated ConstrainedGramacy at `X (n, 2)`: the
+    objective to maximize, then its two slacks (feasible where both >= 0)."""
+    import torch
+
+    from botorch_tpu_torch.test_functions.extra import ConstrainedGramacy
+
+    prob = ConstrainedGramacy(negate=True)
+    return torch.cat([prob(X)[:, None], prob.evaluate_slack(X)], dim=-1)
+
+
+def gramacy_step(X, Y, n: int, sobol, generator, params0=None, fit_x0=None,
+                 initial_conditions=None, cfg=LOOP_CFG):
+    """One constrained-Gramacy iteration on the padded history `X (cap, 2)`,
+    `Y (cap, 3)` with `n` valid rows: a 3-output GP fit, then
+    `LogConstrainedExpectedImprovement` (slacks >= 0, `best_f` the best
+    feasible objective, or the lowest one while none is feasible) maximized
+    in the unit square, its raw points continuing the `sobol` stream.
+    Returns `(candidate (1, 2), value, fitted GPParams)`."""
+    import torch
+
+    from botorch_tpu_torch.acquisition.analytic import LogConstrainedExpectedImprovement
+    from botorch_tpu_torch.fit import fit_gp
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.optim.optimize import optimize_acqf
+
+    device = X.device
+    mask = torch.arange(X.shape[0], device=device) < n
+    model = make_gp(X, Y, mask=mask, device=device)
+    if params0 is not None:
+        model = model.replace(params=params0)
+    model = fit_gp(model, generator, num_restarts=cfg["fit_restarts"], maxiter=cfg["fit_maxiter"],
+                   x0=fit_x0, device=device)
+    feasible = mask & torch.all(Y[:, 1:] >= 0, dim=-1)
+    best_f = torch.amax(torch.where(feasible, Y[:, 0], -torch.inf))
+    best_f = torch.where(torch.isfinite(best_f), best_f,
+                         torch.amin(torch.where(mask, Y[:, 0], torch.inf)))
+    acqf = LogConstrainedExpectedImprovement(
+        model=model, cache=model.train_chol(), best_f=best_f,
+        constraint_lower=torch.tensor(GRAMACY_LOWER, device=device),
+        constraint_upper=torch.full((3,), torch.inf, device=device),
+    )
+    cand, val = optimize_acqf(
+        acqf, _unit_bounds(2, device), q=1, num_restarts=cfg["num_restarts"],
+        raw_samples=cfg["raw_samples"], generator=generator, maxiter=cfg["acq_maxiter"],
+        initial_conditions=initial_conditions, sobol=sobol,
+        sobol_skip=((n + 1) * cfg["raw_samples"]) & 0xFFFFFFFF, device=device,
+    )
+    return cand, val, model.params
+
+
+def hartmann_linear_step(X, Y, n: int, generator, params0=None, fit_x0=None,
+                         initial_conditions=None, cfg=LOOP_CFG):
+    """One Hartmann-6 iteration under `sum(x) <= 3` on the padded history
+    `X (cap, 6)`, `Y (cap,)` with `n` valid rows: the GP fit, then LogEI
+    maximized by `optimize_acqf(inequality_constraints=...)` (polytope
+    initial conditions, the augmented Lagrangian, the Dykstra polish).
+    Returns `(candidate (1, 6), value, fitted GPParams)`."""
+    import torch
+
+    from botorch_tpu_torch.acquisition.analytic import LogExpectedImprovement
+    from botorch_tpu_torch.fit import fit_gp
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.optim.optimize import optimize_acqf
+
+    device = X.device
+    mask = torch.arange(X.shape[0], device=device) < n
+    model = make_gp(X, Y[:, None], mask=mask, device=device)
+    if params0 is not None:
+        model = model.replace(params=params0)
+    model = fit_gp(model, generator, num_restarts=cfg["fit_restarts"], maxiter=cfg["fit_maxiter"],
+                   x0=fit_x0, device=device)
+    acqf = LogExpectedImprovement(model=model, cache=model.train_chol(),
+                                  best_f=torch.amax(torch.where(mask, Y, -torch.inf)))
+    cand, val = optimize_acqf(
+        acqf, _unit_bounds(6, device), q=1, num_restarts=cfg["num_restarts"],
+        raw_samples=cfg["raw_samples"], generator=generator, maxiter=cfg["acq_maxiter"],
+        initial_conditions=initial_conditions, inequality_constraints=HARTMANN_SUM_LE_3,
+        device=device,
+    )
+    return cand, val, model.params
+
+
+def gramacy_loop(seed: int = 0, n_init: int = 10, iterations: int = 20, device="cuda",
+                 cfg=LOOP_CFG):
+    """The closed ConstrainedGramacy loop: `n_init` scrambled Sobol points,
+    then `iterations` of `gramacy_step`, each fit warm-started from the
+    last. Returns the history `(X (n, 2), Y (n, 3))`."""
+    import torch
+
+    from botorch_tpu_torch.sampling.sobol import draw_sobol, sobol_table
+    from botorch_tpu_torch.settings import make_generator
+
+    cap = n_init + iterations
+    sobol = sobol_table(2, scramble=True, seed=seed, device=device)
+    X = torch.zeros((cap, 2), device=device)
+    Y = torch.zeros((cap, 3), device=device)
+    X[:n_init] = draw_sobol(*sobol, n_init)
+    Y[:n_init] = gramacy_evaluate(X[:n_init])
+    generator = make_generator(seed, device)
+    params = None
+    for i in range(iterations):
+        n = n_init + i
+        cand, _, params = gramacy_step(X, Y, n, sobol, generator, params0=params, cfg=cfg)
+        X[n] = cand[0]
+        Y[n] = gramacy_evaluate(cand)[0]
+    return X, Y
+
+
+def hartmann_linear_loop(seed: int = 0, n_init: int = 10, iterations: int = 12, device="cuda",
+                         cfg=LOOP_CFG):
+    """The closed Hartmann-6 loop under `sum(x) <= 3`: `n_init` points from
+    `get_polytope_samples`, then `iterations` of `hartmann_linear_step`.
+    Returns the history `(X (n, 6), Y (n,))` (Y negated Hartmann)."""
+    import torch
+
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.test_functions.synthetic import Hartmann
+    from botorch_tpu_torch.utils.sampling import get_polytope_samples
+
+    prob = Hartmann(dim=6, negate=True)
+    cap = n_init + iterations
+    generator = make_generator(seed, device)
+    X = torch.zeros((cap, 6), device=device)
+    Y = torch.zeros((cap,), device=device)
+    X[:n_init] = get_polytope_samples(generator, n_init, _unit_bounds(6, device),
+                                      inequality_constraints=HARTMANN_SUM_LE_3)
+    Y[:n_init] = prob(X[:n_init])
+    params = None
+    for i in range(iterations):
+        n = n_init + i
+        cand, _, params = hartmann_linear_step(X, Y, n, generator, params0=params, cfg=cfg)
+        X[n] = cand[0]
+        Y[n] = prob(cand)[0]
+    return X, Y
+
+
+def _fit_same_starts(X, Y, device):
+    """A GP on `(X, Y)` fitted on `device` at config 1's fit budget from
+    starts drawn once on the CPU, so card and CPU fit from the same ones."""
+    from botorch_tpu_torch.fit import _prepare_fit, fit_gp
+    from botorch_tpu_torch.models.gp import make_gp
+    from botorch_tpu_torch.settings import make_generator
+
+    x0 = _prepare_fit(make_gp(X, Y, device="cpu"), make_generator(1, "cpu"),
+                      LOOP_CFG["fit_restarts"])[2]
+    return fit_gp(make_gp(X, Y, device=device), num_restarts=LOOP_CFG["fit_restarts"],
+                  maxiter=LOOP_CFG["fit_maxiter"], x0=x0.to(device), device=device)
+
+
+CONSTRAINED_CASES = ("outcome_qlogei", "simplex_logei", "interpoint_budget", "nonlinear_ball")
+
+
+def constrained_case(name: str, device):
+    """`(acqf, q, d, constraint kwargs)` of one constrained branch on
+    `device`: example 06's outcome-constrained qLogEI (a 2-output GP, n =
+    15, d = 2, 128 MC samples) under `x0 + x1 >= 0.5`; example 12's LogEI
+    (n = 20, d = 3) on the simplex `sum(x) = 1` with `x0 <= 0.5`; the
+    inter-point budget `sum of both candidates' coordinates <= 1.2` at q = 2
+    (`tests/test_constraints.py:162`); Hartmann-6 LogEI (n = 16) under the
+    intra-point nonlinear `1 - |x|^2 >= 0` (ConstrainedHartmannSmooth's)."""
+    import numpy as np
+    import torch
+
+    from botorch_tpu_torch.acquisition.analytic import LogExpectedImprovement
+    from botorch_tpu_torch.acquisition.monte_carlo import make_mc_acqf, qLogExpectedImprovement
+    from botorch_tpu_torch.test_functions.synthetic import Hartmann
+
+    rng = np.random.default_rng(0)
+    if name == "interpoint_budget":
+        budget = [(((0, 0), (0, 1), (1, 0), (1, 1)), (-1.0,) * 4, -1.2)]
+        return (lambda X: X.sum((-1, -2))), 2, 2, dict(inequality_constraints=budget)
+    if name == "outcome_qlogei":
+        X = rng.uniform(size=(15, 2)).astype(np.float32)
+        Y = np.stack([np.sin(5 * X[:, 0]) + X[:, 1], X[:, 0] - 0.6], -1).astype(np.float32)
+        model = _fit_same_starts(X, Y, device)
+        acqf = make_mc_acqf(qLogExpectedImprovement, model, q=1, num_samples=128,
+                            best_f=float(np.max(np.where(Y[:, 1] <= 0, Y[:, 0], -np.inf))),
+                            constraints=(lambda s: s[..., 1],))
+        return acqf, 1, 2, dict(inequality_constraints=[((0, 1), (1.0, 1.0), 0.5)])
+    if name == "simplex_logei":
+        X = rng.dirichlet(np.ones(3), size=20).astype(np.float32)
+        Y = (np.sin(4 * X[:, 0]) + X[:, 1] - 0.5 * X[:, 2] + 0.05 * rng.normal(size=20))
+        cons = dict(equality_constraints=[((0, 1, 2), (1.0, 1.0, 1.0), 1.0)],
+                    inequality_constraints=[((0,), (-1.0,), -0.5)])
+    else:
+        X = (0.5 * rng.uniform(size=(16, 6))).astype(np.float32)
+        Y = Hartmann(dim=6, negate=True)(torch.tensor(X)).numpy()
+        cons = dict(nonlinear_inequality_constraints=[
+            lambda x: 1.0 - torch.sum(torch.square(x), dim=-1)])
+    model = _fit_same_starts(X, np.asarray(Y, np.float32)[:, None], device)
+    acqf = LogExpectedImprovement(model=model, cache=model.train_chol(), best_f=float(Y.max()))
+    return acqf, 1, X.shape[1], cons
+
+
+def constrained_step_case(name: str) -> dict:
+    """One constrained `optimize_acqf` on the card and on the CPU from the
+    same fit starts and initial conditions: the candidates' distance, the
+    values, both sides' violation (the card's at most `FEASIBILITY_TOL`);
+    where the candidate moves beyond `CONSTRAINED_STEP_TOL`, the CPU
+    acquisition at the card's candidate against its value at its own."""
+    import numpy as np
+    import torch
+
+    from botorch_tpu_torch.optim.constraints import FEASIBILITY_TOL, max_violation
+    from botorch_tpu_torch.optim.optimize import optimize_acqf
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        acqf, q, d, cons = constrained_case(name, dev)
+        ics = np.random.default_rng(5).uniform(size=(LOOP_CFG["num_restarts"], q, d))
+        cand, val = optimize_acqf(acqf, _unit_bounds(d, dev), q=q, maxiter=LOOP_CFG["acq_maxiter"],
+                                  initial_conditions=torch.tensor(ics, dtype=torch.float32),
+                                  device=dev, **cons)
+        out[dev] = (acqf, cand.cpu(), float(val))
+    (acq_cpu, c_cpu, v_cpu), (_, c_gpu, v_gpu) = out["cpu"], out["cuda"]
+    cand_err = max_err(c_gpu, c_cpu)
+    value_err = abs(v_gpu - v_cpu) / max(1.0, abs(v_cpu))
+    viol = {dev: float(max_violation(c, **cons).max())
+            for dev, c in (("cuda", c_gpu), ("cpu", c_cpu))}
+    case = {"name": name, "q": q, "d": d, "candidate_max_abs_err": cand_err,
+            "value_cuda": v_gpu, "value_cpu": v_cpu, "value_rel_err": value_err,
+            "violation": viol, "feasibility_tol": FEASIBILITY_TOL}
+    close = cand_err <= CONSTRAINED_STEP_TOL and value_err <= CONSTRAINED_STEP_TOL
+    if not close:
+        with torch.no_grad():
+            at_card = float(acq_cpu(c_gpu[None]))
+        case["cpu_acq_at_card_candidate"] = at_card
+        close = at_card >= v_cpu - CONSTRAINED_STEP_TOL * max(1.0, abs(v_cpu))
+    case["ok"] = bool(close and viol["cuda"] <= FEASIBILITY_TOL and viol["cpu"] <= FEASIBILITY_TOL
+                      and math.isfinite(v_gpu))
+    return case
+
+
+def host_syncs(fn) -> int:
+    """Synchronizing CUDA operations in one call of `fn`: the host reads
+    (`bool()` of a device tensor, `.item()`) and blocking copies, counted by
+    PyTorch's sync debug mode."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def call_cost(fn) -> dict:
+    """Device launches, busy ms and host syncs of one call of `fn`, and its
+    wall ms, all from that one call, profiled with the sync debug mode on
+    (the wall includes what the profiler and the sync checks cost)."""
+    import torch
+
+    syncs, wall = [], []
+
+    def timed():
+        t0 = time.perf_counter()
+        syncs.append(host_syncs(fn))
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+
+    torch.cuda.synchronize()
+    rows = device_profile(timed, cpu=False)
+    return {"profiled_wall_ms": wall[0], "device_launches": sum(c for c, _ in rows.values()),
+            "device_busy_ms": sum(us for _, us in rows.values()) / 1e3, "host_syncs": syncs[0]}
+
+
+def phase_constrained_step():
+    """The four constrained branches card against CPU, then on the card one
+    whole `optimize_acqf` call of each (its own initial conditions, config
+    1's 6 restarts and 64 raw samples), profiled: device launches, host
+    syncs, wall ms; and the hit-and-run chain of the polytope branch alone
+    (64 points in d = 6, 200 + 64 * 32 steps), its wall ms from a second,
+    unprofiled call."""
+    import torch
+
+    from botorch_tpu_torch.optim.optimize import optimize_acqf
+    from botorch_tpu_torch.settings import make_generator
+    from botorch_tpu_torch.utils.sampling import get_polytope_samples
+
+    cases = [constrained_step_case(name) for name in CONSTRAINED_CASES]
+    calls = {}
+    for name in CONSTRAINED_CASES:
+        acqf, q, d, cons = constrained_case(name, "cuda")
+        gen = make_generator(3, "cuda")
+        calls[name] = call_cost(lambda: optimize_acqf(
+            acqf, _unit_bounds(d, "cuda"), q=q, num_restarts=LOOP_CFG["num_restarts"],
+            raw_samples=LOOP_CFG["raw_samples"], generator=gen, maxiter=LOOP_CFG["acq_maxiter"],
+            device="cuda", **cons))
+    gen = make_generator(4, "cuda")
+    n_pts = LOOP_CFG["raw_samples"]
+
+    def chain_call():
+        get_polytope_samples(gen, n_pts, _unit_bounds(6, "cuda"),
+                             inequality_constraints=HARTMANN_SUM_LE_3)
+
+    chain = call_cost(chain_call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain_call()
+    torch.cuda.synchronize()
+    chain["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    chain["steps"] = 200 + 32 * n_pts
+    chain["us_per_step"] = 1e3 * chain["wall_ms"] / chain["steps"]
+    chain["launches_per_step"] = chain["device_launches"] / chain["steps"]
+    torch.cuda.synchronize()
+    return {"phase": "constrained_step", "ok": all(c["ok"] for c in cases), "cases": cases,
+            "optimize_acqf_calls": calls, "hit_and_run": chain}
+
+
+def phase_constrained_loop():
+    """The ConstrainedGramacy loop (LogCEI, box-only `optimize_acqf`) and
+    the Hartmann-6 loop under sum(x) <= 3 (polytope design, LogEI,
+    `optimize_acqf(inequality_constraints=...)`), seed 0, config 1's
+    budgets, each with K1's and K2's launches by shape: the Gramacy loop's
+    best feasible value beside its design's and -0.5998, its feasible
+    count; every Hartmann point feasible to `FEASIBILITY_TOL`, its regret."""
+    import torch
+
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+    from botorch_tpu_torch.optim.constraints import FEASIBILITY_TOL
+
+    def counted(run):
+        box = {}
+        qd_cuda.launches = 0
+        kernel_matrix_cuda.launches = 0
+        k2 = []
+        t0 = time.perf_counter()
+        k1 = k1_shapes_of(lambda: k2.extend(k2_shapes_of(lambda: box.update(out=run()))))
+        torch.cuda.synchronize()
+        return box["out"], {
+            "wall_s": time.perf_counter() - t0,
+            "launches": {"mvn_quad_logdet": qd_cuda.launches,
+                         "kernel_matrix": kernel_matrix_cuda.launches},
+            "mvn_quad_logdet_shapes": k1, "kernel_matrix_shapes": k2,
+        }
+
+    (X, Y), g = counted(lambda: gramacy_loop(seed=0, device="cuda", **GRAMACY_LOOP))
+    X, Y = X.cpu(), Y.cpu()
+    n0 = GRAMACY_LOOP["n_init"]
+    feasible = torch.all(Y[:, 1:] >= 0, dim=-1)
+    best = float(torch.where(feasible, Y[:, 0], -torch.inf).max())
+    best0 = float(torch.where(feasible[:n0], Y[:n0, 0], -torch.inf).max())
+    g.update(iterations=GRAMACY_LOOP["iterations"],
+             iters_per_s=GRAMACY_LOOP["iterations"] / g["wall_s"], best_feasible=best,
+             initial_design_best_feasible=best0, optimum=-GRAMACY_OPT, gap=-GRAMACY_OPT - best,
+             feasible_evaluations=int(feasible.sum()), evaluations=len(Y),
+             finite=bool(torch.isfinite(Y).all() and torch.isfinite(X).all()),
+             in_box=bool(((X >= 0) & (X <= 1)).all()))
+    g_ok = (g["finite"] and g["in_box"] and best > best0
+            and all(v > 0 for v in g["launches"].values()))
+
+    (X, Y), h = counted(lambda: hartmann_linear_loop(seed=0, device="cuda", **HARTMANN_LOOP))
+    X, Y = X.cpu(), Y.cpu()
+    n0 = HARTMANN_LOOP["n_init"]
+    viol = torch.clamp(X.sum(-1) - 3.0, min=0.0)
+    viol = torch.maximum(viol, torch.clamp(-X, min=0.0).amax(-1))
+    viol = torch.maximum(viol, torch.clamp(X - 1.0, min=0.0).amax(-1))
+    h.update(iterations=HARTMANN_LOOP["iterations"],
+             iters_per_s=HARTMANN_LOOP["iterations"] / h["wall_s"],
+             regret=HARTMANN6_OPT - float(Y.max()),
+             initial_design_regret=HARTMANN6_OPT - float(Y[:n0].max()),
+             max_violation=float(viol.max()), max_sum=float(X.sum(-1).max()),
+             finite=bool(torch.isfinite(Y).all() and torch.isfinite(X).all()))
+    h_ok = (h["finite"] and h["max_violation"] <= FEASIBILITY_TOL
+            and all(v > 0 for v in h["launches"].values()))
+    return {"phase": "constrained_loop", "ok": bool(g_ok and h_ok), "gramacy": g,
+            "hartmann_sum_le_3": h}
+
+
 def k1_shapes_of(step) -> list:
     """K1 launches of one call of `step` by (B, n), counted by wrapping the
     wrapper that `_qd_core` calls; its own count is carried back to it."""
@@ -1702,19 +2142,24 @@ def k2_shapes_of(step) -> list:
             for (B, n, m, d, path), c in seen.most_common()]
 
 
-def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo, turbo_exact, turbo_svgp):
+def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo, turbo_exact, turbo_svgp, gramacy):
     """One row per kernel at each main-path shape, its launches from the run
     of the loop that launches it there (`launches_from`): K1 at the
-    config-1 fit's (B=2, n=35), config 3's NUTS potential (8, 26) and the
+    config-1 fit's (B=2, n=35), config 3's NUTS potential in the saasbo
+    loop's buffers (8, `SAASBO_LOOP_CAPACITY`) and the
     NUTS throughput shape (64, 24), float32; K2 at the config-1 fit's (B=2,
     35 x 35, d=2) and acquisition's (B=6, 35 x 1, d=2) and the config-2
     ascent's k(X_train, X_full) (B=6, 76 x 80, d=6), rbf float32, at the
-    config-3 shape it launches most, matern52 float32, and at the config-4
+    config-3 NUTS potential's (B=8, n x n, d=8) in the same buffers,
+    matern52 float32, and at the config-4
     fit's (B=2, 90 x 90, d=2) and last pick's ascent k(X_train, X_full)
     (B=4, 90 x 94, d=2), rbf float32; config 5's: K1 at the exact TuRBO
     fit's (2, 40), K2 at the exact paths' (1, 4096 x 2048, 20) rbf and at
     the SVGP's Kzx (1, 256 x 512, 20), paths' Kxz (1, 2048 x 256, 20) and
-    greedy column (1, 16384 x 1, 20), matern52, float32. A row's `launches`
+    greedy column (1, 16384 x 1, 20), matern52, float32; and K1 at the
+    ConstrainedGramacy loop's fit (2, 30) and K2 at its acquisition's
+    (B=6, 30 x 1, d=2), float32, rbf.
+    A row's `launches`
     counts the kernel's launches over that run at the row's shape where
     the run counts them by shape, else all of them. Every number but
     `bound_ms` is measured in this run."""
@@ -1735,9 +2180,11 @@ def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo, turbo_exact, turbo_svgp):
               "botorch_tpu/ops/pallas_linalg.py:134")
     k2_src = ("kernel_matrix", "botorch_tpu_torch/csrc/kernel_matrix.cu",
               "botorch_tpu/ops/pallas_kernels.py:84")
-    n3 = saasbo["capacity"]
-    top3 = saasbo["kernel_matrix_shapes"][0]
-    shape3 = (top3["B"], top3["n"], top3["m"], top3["d"])
+    def k2_launches(shapes, shape):
+        return sum(r["launches"] for r in shapes if (r["B"], r["n"], r["m"], r["d"]) == shape)
+
+    n3 = SAASBO_LOOP_CAPACITY
+    shape3 = (8, n3, n3, CONFIG3["d"])
     rows = [
         (*k1_src, (2, 35), *k1_at(2, 35), loop["launches"]["mvn_quad_logdet"], loop),
         (*k1_src, (8, n3), *k1_at(8, n3), k1_launches(saasbo, 8, n3), saasbo),
@@ -1745,10 +2192,8 @@ def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo, turbo_exact, turbo_svgp):
     ]
     for shape, run in (((2, 35, 35, 2), loop), ((6, 35, 1, 2), loop), ((6, 76, 80, 6), qnei)):
         rows.append((*k2_src, shape, *k2_at(shape, "rbf"), run["launches"]["kernel_matrix"], run))
-    rows.append((*k2_src, shape3, *k2_at(shape3, "matern52"), top3["launches"], saasbo))
-    def k2_launches(shapes, shape):
-        return sum(r["launches"] for r in shapes if (r["B"], r["n"], r["m"], r["d"]) == shape)
-
+    rows.append((*k2_src, shape3, *k2_at(shape3, "matern52"),
+                 k2_launches(saasbo["kernel_matrix_shapes"], shape3), saasbo))
     for shape in ((2, 90, 90, 2), (4, 90, 94, 2)):
         rows.append((*k2_src, shape, *k2_at(shape, "rbf"),
                      k2_launches(mo["kernel_matrix_shapes"], shape), mo))
@@ -1759,6 +2204,11 @@ def kernels_line(k1, k2, loop, qnei, nuts, saasbo, mo, turbo_exact, turbo_svgp):
     for shape in ((1, 256, 512, 20), (1, 2048, 256, 20), (1, 16384, 1, 20)):
         rows.append((*k2_src, shape, *k2_at(shape, "matern52"),
                      k2_launches(turbo_svgp["kernel_matrix_shapes"], shape), turbo_svgp))
+    run = {"phase": "constrained_loop"}
+    rows.append((*k1_src, (2, 30), *k1_at(2, 30), k1_launches(gramacy, 2, 30), run))
+    shape = (6, 30, 1, 2)
+    rows.append((*k2_src, shape, *k2_at(shape, "rbf"),
+                 k2_launches(gramacy["kernel_matrix_shapes"], shape), run))
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "shape": list(shape),
          "dtype": "float32", "kind": c.get("kind"), "path": c.get("path"), "launches": launches,
@@ -1793,7 +2243,8 @@ def main() -> int:
         ("nuts_step", phase_nuts_step), ("nuts", phase_nuts),
         ("saasbo_loop", phase_saasbo_loop), ("mo_step", phase_mo_step), ("mo_loop", phase_mo_loop),
         ("turbo_step", phase_turbo_step), ("turbo_exact", phase_turbo_exact),
-        ("turbo_svgp", phase_turbo_svgp),
+        ("turbo_svgp", phase_turbo_svgp), ("constrained_step", phase_constrained_step),
+        ("constrained_loop", phase_constrained_loop),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1815,7 +2266,8 @@ def main() -> int:
         return 1
     emit(kernels_line(results["k1"], results["k2"], results["bo_loop"], results["qnei_loop"],
                       results["nuts"], results["saasbo_loop"], results["mo_loop"],
-                      results["turbo_exact"], results["turbo_svgp"]))
+                      results["turbo_exact"], results["turbo_svgp"],
+                      results["constrained_loop"]["gramacy"]))
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -22,6 +22,8 @@ from botorch_tpu.models import gp as jgp
 from botorch_tpu_torch import convert
 from botorch_tpu_torch.acquisition import analytic as ta
 from botorch_tpu_torch.models import gp as tgp
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 NAMES = ["EI", "LogEI", "PI", "LogPI", "UCB", "PosteriorMean"]
 

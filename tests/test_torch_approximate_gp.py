@@ -33,20 +33,9 @@ from botorch_tpu.models import approximate_gp as jag
 from botorch_tpu_torch import convert
 from botorch_tpu_torch.acquisition.analytic import make_acqf
 from botorch_tpu_torch.models import approximate_gp as tag
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 N, D, M, BATCH = 96, 3, 12, 32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port: these tensors are tiny, and beside
-    the suite's other workers torch's spinning thread pool costs far more
-    than it saves (an SVGP fit of 200 steps: ~250 s with 8 threads, ~1 s
-    with one, six processes on 8 cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _data(seed=0, n=N, d=D):

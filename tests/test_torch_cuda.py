@@ -11,12 +11,15 @@ Tolerances are `chip_smoke.py`'s, with the same reasons.
 import numpy as np
 import pytest
 import torch
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 pytestmark = pytest.mark.cuda
 
 KINDS = ["rbf", "matern52", "matern32", "matern12"]
 K1_SHAPES = [(7, 13), (32, 24), (8, 64), (2, 35), (3, 1)] + [
-    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)] + [(200, 35), (200, 64), (8, 26), (64, 24)]
+    (B, n) for B in (1, 5, 33) for n in (1, 31, 32, 33)] + [(200, 35), (200, 64), (8, 26), (64, 24),
+                                                            (2, 30), (2, 22)]
 K2_SHAPES = [(2, 35, 35, 2, True), (1, 35, 35, 2, True), (1, 300, 257, 7, False),
              (6, 35, 1, 2, False), (6, 1, 1, 2, False), (64, 35, 1, 2, False),
              (64, 1, 1, 2, False), (80, 35, 1, 2, False), (80, 1, 1, 2, False),
@@ -150,6 +153,55 @@ K2_CONFIG5 = [(1, 256, 256, 20, True, "matern52"), (1, 256, 512, 20, False, "mat
 @pytest.mark.parametrize("B,n,m,d,coincident,kind", K2_CONFIG5)
 def test_k2_at_config5_shapes_matches_plain(dev, kind, B, n, m, d, coincident, dtype):
     _check_k2(dev, kind, B, n, m, d, coincident, dtype)
+
+
+# the constrained loops' (rbf): ConstrainedGramacy's fit and train covariances
+# of 30 padded rows (d = 2) and its LogCEI's k(x_train, X), k(X, X) at the 6
+# restarts and 64 raw points; the same for Hartmann-6 under sum(x) <= 3 (22
+# rows, d = 6)
+K2_CONSTRAINED = [(B, n, m, d, c, "rbf") for n, d in ((30, 2), (22, 6))
+                  for B, m, c in ((2, n, True), (1, n, True), (6, 1, False), (64, 1, False))]
+K2_CONSTRAINED += [(B, 1, 1, d, False, "rbf") for d in (2, 6) for B in (6, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,m,d,coincident,kind", K2_CONSTRAINED)
+def test_k2_at_constrained_loop_shapes_matches_plain(dev, kind, B, n, m, d, coincident, dtype):
+    _check_k2(dev, kind, B, n, m, d, coincident, dtype)
+
+
+@pytest.mark.parametrize("name", ["outcome_qlogei", "simplex_logei", "interpoint_budget",
+                                  "nonlinear_ball"])
+def test_constrained_branch_on_the_card_matches_the_cpu(dev, name):
+    """One constrained `optimize_acqf` of each branch on the card and on the
+    CPU from the same fit starts and initial conditions
+    (`chip_smoke.constrained_step_case`): the card's candidates violate
+    their constraints by at most 1e-5, and lie within 2e-2 of the CPU's or
+    score as high under the CPU's acquisition."""
+    import chip_smoke
+
+    case = chip_smoke.constrained_step_case(name)
+    assert case["violation"]["cuda"] <= 1e-5, case
+    assert case["ok"], case
+
+
+def test_constrained_loops_run_on_the_card_through_both_kernels(dev):
+    """Two iterations of each constrained loop on the card: K1 carries the
+    fits' MLL, K2 every kernel matrix, and every Hartmann point satisfies
+    sum(x) <= 3."""
+    import chip_smoke
+
+    from botorch_tpu_torch.ops.kernel_matrix import kernel_matrix_cuda
+    from botorch_tpu_torch.ops.mvn_linalg import qd_cuda
+
+    tiny = dict(chip_smoke.LOOP_CFG, num_restarts=3, raw_samples=16, fit_maxiter=5, acq_maxiter=5)
+    for loop in (chip_smoke.gramacy_loop, chip_smoke.hartmann_linear_loop):
+        qd_cuda.launches = kernel_matrix_cuda.launches = 0
+        X, Y = loop(seed=0, n_init=6, iterations=2, cfg=tiny)
+        assert X.is_cuda and bool(torch.isfinite(Y).all())
+        assert bool(((X >= 0) & (X <= 1)).all())
+        assert qd_cuda.launches > 0 and kernel_matrix_cuda.launches > 0
+    assert float(X.sum(-1).max()) <= 3.0 + 1e-5
 
 
 def _check_k2(dev, kind, B, n, m, d, coincident, dtype):

@@ -20,6 +20,7 @@ from botorch_tpu_torch import convert
 from botorch_tpu_torch import fit as tfit
 from botorch_tpu_torch.models import gp as tgp
 from botorch_tpu_torch.settings import make_generator
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _problem(n=12, capacity=None, seed=0):

@@ -60,6 +60,8 @@ from botorch_tpu_torch.posteriors import fully_bayesian as tfb
 from botorch_tpu_torch.sampling.samplers import IndexSampler
 from botorch_tpu_torch.settings import make_generator
 from botorch_tpu_torch.utils.transforms import is_ensemble, is_fully_bayesian
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 N, D, NV, S = 12, 4, 10, 6
 K_DIM = 3 + 1 + D

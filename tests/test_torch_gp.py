@@ -21,6 +21,8 @@ from botorch_tpu_torch import convert
 from botorch_tpu_torch.models import gp as tgp
 from botorch_tpu_torch.models import priors as tpr
 from botorch_tpu_torch.posteriors.gaussian import GaussianPosterior
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import botorch_tpu_torch
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "botorch_tpu")
@@ -85,7 +87,8 @@ def test_sources_exist():
         "posteriors/fully_bayesian.py", "saasbo.py", "utils/multi_objective.py",
         "test_functions/multi_objective.py", "acquisition/multi_objective.py", "mo_loop.py",
         "models/approximate_gp.py", "sampling/pathwise.py", "generation/sampling.py",
-        "optim/turbo.py",
+        "optim/turbo.py", "utils/constraints.py", "optim/constraints.py", "utils/sampling.py",
+        "test_functions/extra.py",
     ):
         assert mod in names, mod
     csrc = {p.name for p in (ROOT / "botorch_tpu_torch" / "csrc").glob("*.cu")}
@@ -212,6 +215,30 @@ def test_turbo_slice_defaults_to_cuda():
     for model_type in ("exact", "svgp"):
         with pytest.raises(RuntimeError, match="CUDA"):
             run_turbo(lambda X: X.sum(-1), d=2, n_init=4, iterations=1, model_type=model_type)
+
+
+def test_constrained_slice_defaults_to_cuda():
+    """The constrained slice's entry points that make tensors from nothing
+    run on CUDA unless given a device, and raise without a card; the
+    samplers follow their inputs' device."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a card")
+    from botorch_tpu_torch.optim.constraints import AffineSubspace, make_al_objective
+    from botorch_tpu_torch.optim.optimize import optimize_acqf
+    from botorch_tpu_torch.utils.sampling import get_polytope_samples
+
+    eq = [((0, 1), (1.0, 1.0), 1.0)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AffineSubspace.build(eq, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_al_objective(lambda V: V.sum(-1), 1, 2, equality_constraints=eq)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimize_acqf(lambda X: X.sum((-1, -2)), [[0.0, 0.0], [1.0, 1.0]], q=1,
+                      equality_constraints=eq)
+    assert AffineSubspace.build(eq, 2, device="cpu").x0.device.type == "cpu"
+    pts = get_polytope_samples(torch.Generator().manual_seed(0), 4,
+                               torch.tensor([[0.0, 0.0], [1.0, 1.0]]), equality_constraints=eq)
+    assert pts.device.type == "cpu" and pts.shape == (4, 2)
 
 
 def test_mc_acquisition_refuses_fully_bayesian_models():

@@ -18,6 +18,8 @@ import torch
 from botorch_tpu.ops import kernels as jk
 from botorch_tpu_torch.ops import kernel_matrix as tkm
 from botorch_tpu_torch.ops import kernels as tk
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 KINDS = ["rbf", "matern52", "matern32", "matern12"]
 

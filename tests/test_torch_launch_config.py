@@ -20,6 +20,8 @@ import torch
 
 from botorch_tpu_torch.ops.kernel_matrix import k2_plan
 from botorch_tpu_torch.ops.mvn_linalg import k1_launch
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 H100_SMS = 132
 H100_SMEM_OPT_IN = 232_448

@@ -16,6 +16,7 @@ import torch
 
 from botorch_tpu.ops import lbfgs as jl
 from botorch_tpu_torch.ops import lbfgs as tl
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def rosen_t(X):

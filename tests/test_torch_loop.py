@@ -42,6 +42,8 @@ from botorch_tpu_torch.sampling.sobol import sobol_table as t_sobol_table
 from botorch_tpu_torch.settings import make_generator
 from botorch_tpu_torch.test_functions.synthetic import Branin, Hartmann
 from botorch_tpu_torch.utils.transforms import unnormalize
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 CFG = dict(num_restarts=6, raw_samples=64, fit_restarts=2, fit_maxiter=15, acq_maxiter=15)
 BRANIN_OPT = 0.397887

@@ -23,6 +23,8 @@ from botorch_tpu_torch import convert
 from botorch_tpu_torch.acquisition import monte_carlo as tmc
 from botorch_tpu_torch.models import gp as tgp
 from botorch_tpu_torch.settings import make_generator
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 CAP, NV, D, NMC = 16, 12, 3, 32
 

@@ -39,6 +39,8 @@ from botorch_tpu_torch.models.gp import make_gp
 from botorch_tpu_torch.sampling.sobol import sobol_table as t_sobol_table
 from botorch_tpu_torch.settings import make_generator
 from botorch_tpu_torch.test_functions.multi_objective import BraninCurrin
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 CAP, N0, D, M, Q, NMC = 12, 8, 2, 2, 2, 8
 TINY = dict(num_restarts=2, raw_samples=8, fit_restarts=2, fit_maxiter=8, acq_maxiter=8)

@@ -45,6 +45,8 @@ from botorch_tpu_torch.models import gp as tgp
 from botorch_tpu_torch.settings import make_generator
 from botorch_tpu_torch.test_functions.multi_objective import BraninCurrin
 from botorch_tpu_torch.utils import multi_objective as tmu
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 CAP, NV, D, NMC = 16, 12, 2, 16
 REF = np.array([-18.0, -6.0], np.float32)  # BraninCurrin(negate=True).ref_point

@@ -19,6 +19,8 @@ from botorch_tpu.ops import chol as jc
 from botorch_tpu.ops.pallas_linalg import _qd_jnp, mvn_quad_logdet as j_mvn
 from botorch_tpu_torch.ops import chol as tc
 from botorch_tpu_torch.ops import mvn_linalg as tm
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 SHAPES = [(7, 13), (32, 24), (8, 64), (2, 35)]
 

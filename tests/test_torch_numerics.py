@@ -20,6 +20,8 @@ from botorch_tpu.utils import transforms as jt
 from botorch_tpu_torch.utils import probability as tp
 from botorch_tpu_torch.utils import safe_math as tsm
 from botorch_tpu_torch.utils import transforms as tt
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 RTOL, ATOL = 2e-6, 1e-6
 

@@ -43,6 +43,8 @@ from botorch_tpu_torch.models.fully_bayesian import (
     make_saas_potential_and_grad as t_make_saas_potential_and_grad,
 )
 from botorch_tpu_torch.sampling import nuts as tn
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 K_QUARTIC = 5
 

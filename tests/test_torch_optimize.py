@@ -20,6 +20,7 @@ from botorch_tpu_torch.models import gp as tgp
 from botorch_tpu_torch.optim import optimize as to
 from botorch_tpu_torch.sampling.sobol import sobol_table as t_sobol_table
 from botorch_tpu_torch.settings import make_generator
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _acqfs(dtype=np.float32):

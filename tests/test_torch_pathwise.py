@@ -33,21 +33,10 @@ from botorch_tpu_torch.generation import sampling as tgs
 from botorch_tpu_torch.models import gp as tgp
 from botorch_tpu_torch.models.approximate_gp import SVGP
 from botorch_tpu_torch.sampling import pathwise as tpw
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 N, D, L, P = 16, 3, 64, 3
 NU = {"matern52": 2.5}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port: these tensors are tiny, and beside
-    the suite's other workers torch's spinning thread pool costs far more
-    than it saves (an SVGP fit of 200 steps: ~250 s with 8 threads, ~1 s
-    with one, six processes on 8 cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_path_draws(key, kernel, P, L, d, k):

@@ -46,6 +46,7 @@ from botorch_tpu_torch.saasbo import run_saasbo, saasbo_step
 from botorch_tpu_torch.settings import make_generator
 from botorch_tpu_torch.test_functions.synthetic import Branin
 from botorch_tpu_torch.utils.transforms import unnormalize
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 BRANIN_OPT = 0.397887
 CAP, NV, D = 12, 9, 4

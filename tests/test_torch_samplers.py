@@ -27,6 +27,8 @@ from botorch_tpu_torch.sampling import qmc as tq
 from botorch_tpu_torch.sampling import samplers as ts
 from botorch_tpu_torch.sampling.sobol import draw_sobol_normal_samples as t_normal
 from botorch_tpu_torch.settings import make_generator
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 NORMAL_TOL = dict(rtol=1e-6, atol=2e-6)
 

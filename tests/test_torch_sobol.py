@@ -9,6 +9,7 @@ import torch
 
 from botorch_tpu.sampling import sobol as js
 from botorch_tpu_torch.sampling import sobol as ts
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dim,scramble,seed", [(1, False, None), (2, True, 0),

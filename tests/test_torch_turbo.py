@@ -45,21 +45,10 @@ from botorch_tpu_torch.sampling.pathwise import PathDraws, draw_matheron_paths
 from botorch_tpu_torch.settings import make_generator
 from botorch_tpu_torch.test_functions.synthetic import Ackley
 from botorch_tpu_torch.utils.transforms import unnormalize
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 D, L, Q, NC = 4, 64, 4, 128
 MATERN_NU = 2.5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port: these tensors are tiny, and beside
-    the suite's other workers torch's spinning thread pool costs far more
-    than it saves (an SVGP fit of 200 steps: ~250 s with 8 threads, ~1 s
-    with one, six processes on 8 cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _state_np(st):
@@ -212,6 +201,27 @@ def test_generate_turbo_candidates_from_a_generator_and_sobol():
     with pytest.raises(ValueError, match="model_type"):
         tturbo.run_turbo(lambda X: X.sum(-1), d=2, n_init=3, iterations=1, model_type="sparse",
                          device="cpu")
+
+
+def test_generate_turbo_candidates_refuses_an_ensemble():
+    """An ensemble's joint draw would pick per member and return (q, S, d),
+    not (q, d): the port refuses it, as `make_pathwise_thompson_sampling`
+    refuses fully-Bayesian models (the JAX package raises a TypeError on
+    the same model)."""
+    from botorch_tpu_torch.models.fully_bayesian import load_saas_samples
+
+    X = np.random.default_rng(0).uniform(size=(6, 3))
+    base = tgp.make_gp(X, X.sum(-1), kernel="matern52", use_outputscale=True, device="cpu")
+    ens = load_saas_samples(torch.zeros(4, 6), base)
+    assert ens.batch_shape == (4,)
+    st = tturbo.turbo_init(best_value=0.0, device="cpu")
+    center = torch.full((3,), 0.5)
+    with pytest.raises(NotImplementedError, match="ensemble"):
+        tturbo.generate_turbo_candidates(ens, st, center, torch.Generator().manual_seed(0),
+                                         n_candidates=16, q=2)
+    cand = tturbo.generate_turbo_candidates(base, st, center, torch.Generator().manual_seed(0),
+                                            n_candidates=16, q=2, num_features=32)
+    assert cand.shape == (2, 3)
 
 
 def _quadratic(X):

@@ -5,10 +5,12 @@ checks a new path before the whole script:
 
 Each name is a phase of `chip_smoke.py` (`build`, `k1`, `k2`, `bo_step`,
 `bo_loop`, `mc_step`, `qnei_loop`, `nuts_step`, `nuts`, `saasbo_loop`,
-`mo_step`, `mo_loop`, `turbo_step`, `turbo_exact`, `turbo_svgp`),
+`mo_step`, `mo_loop`, `turbo_step`, `turbo_exact`, `turbo_svgp`,
+`constrained_step`, `constrained_loop`),
 `k2_config4`: the k2 phase's cases at config 4's shapes alone (rbf,
-float32 and float64, both paths timed), or `k2_config5`: its cases at
-config 5's loops' shapes (float32, both paths timed), or
+float32 and float64, both paths timed), `k2_config5`: its cases at
+config 5's loops' shapes (float32, both paths timed), `k2_constrained`:
+its cases at the constrained loops' shapes (rbf, float32 and float64), or
 `saasbo_loop_profiled`: the saasbo_loop phase with its profiled step,
 which `chip_smoke.py` leaves out for time. Build the
 kernels first (`build`) unless an earlier call in the same process did.
@@ -35,6 +37,7 @@ import chip_smoke as cs  # noqa: E402
 K2_CONFIGS = {
     "k2_config4": ([(shape, "rbf") for shape in cs.CONFIG4_K2], (torch.float32, torch.float64)),
     "k2_config5": (cs.CONFIG5_K2, (torch.float32,)),
+    "k2_constrained": (cs.CONSTRAINED_K2, (torch.float32, torch.float64)),
 }
 
 
@@ -47,8 +50,8 @@ def k2_config(name, gen) -> dict:
 
 
 def phase(name):
-    """`chip_smoke.phase_<name>`, this script's `k2_config4` or
-    `k2_config5`, or `saasbo_loop_profiled`; None if none exists."""
+    """`chip_smoke.phase_<name>`, this script's `k2_config4`, `k2_config5`
+    or `k2_constrained`, or `saasbo_loop_profiled`; None if none exists."""
     if name in K2_CONFIGS:
         return lambda gen: k2_config(name, gen)
     if name == "saasbo_loop_profiled":
